@@ -1,12 +1,11 @@
-"""brutefir_tpu — a TPU-native multi-channel FIR convolution engine.
+"""brutefir_tpu — a multi-channel FIR convolution engine for accelerators.
 
 A ground-up rebuild of the capabilities of BruteFIR (the classic C
-partitioned-convolution engine, reference layout at /root/reference) designed
-for TPU hardware: the per-block signal path compiles to a single jitted XLA
-program (rfft -> mixing matmuls -> partitioned spectral MAC -> irfft), runtime
-controls are block-boundary-snapshotted device arguments, and the
-fork/pipe/shared-memory pipeline of the reference becomes overlapped host I/O
-and asynchronous device dispatch.
+partitioned-convolution engine) in JAX: the per-block signal path compiles
+to a single jitted XLA program (rfft -> mixing matmuls -> partitioned
+spectral MAC -> irfft), runtime controls are block-boundary-snapshotted
+device arguments, and the fork/pipe/shared-memory pipeline of the reference
+becomes overlapped host I/O and asynchronous device dispatch.
 
 Public entry points:
     brutefir_tpu.config.parse_config_file  -- parse a BruteFIR config

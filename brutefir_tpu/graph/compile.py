@@ -26,7 +26,6 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import partconv
-from ..ops.pallas_mac import pallas_spectral_mac, pallas_available
 from .spec import GraphSpec
 
 
@@ -51,39 +50,49 @@ class StepCtrl(NamedTuple):
     ps_thresh: jax.Array  # [C_in] analog-powersave gate threshold (0 = off)
 
 
+MAC_KINDS = ("jnp", "triton")
+
+
+def resolve_mac(mac: str, real_dtype=np.float32) -> str:
+    """``BRUTEFIR_TPU_MAC`` value -> MAC implementation.
+
+    "triton" is the Pallas Triton kernel (ops/triton_mac.py): one pass
+    over the ring and bank per block, where XLA's dense MAC reads both
+    twice (once per output plane). It accumulates in float32 and compiles
+    only where the backend has a Triton route. "jnp" is the dense gather
+    + reduce that XLA fuses. "auto" takes the kernel wherever it compiles
+    and the graph is float32, else the dense MAC."""
+    from ..ops import triton_mac
+    if mac not in ("auto",) + MAC_KINDS:
+        from ..errors import BFError, BF_EXIT_INVALID_CONFIG
+        raise BFError(f"BRUTEFIR_TPU_MAC={mac!r}: expected 'auto' or one "
+                      f"of {', '.join(MAC_KINDS)}",
+                      exit_code=BF_EXIT_INVALID_CONFIG)
+    if mac == "jnp":
+        return mac
+    if np.dtype(real_dtype) == np.float32 and triton_mac.available():
+        return "triton"
+    if mac == "triton":
+        from ..errors import BFError, BF_EXIT_INVALID_CONFIG
+        raise BFError("BRUTEFIR_TPU_MAC=triton: the Triton MAC needs a "
+                      "float32 graph on a backend with a Triton route",
+                      exit_code=BF_EXIT_INVALID_CONFIG)
+    return "jnp"
+
+
 class CompiledGraph:
     """Owns the jitted step and state initialization for one GraphSpec.
 
-    ``mac``: "jnp" (dense gather + reduce), "pallas" (fused TPU kernel),
-    "pallas-interpret" (kernel in interpreter mode, for CPU tests), or
-    "auto" (the dense path; the *engine* resolves auto to "pallas" on
-    TPU wherever the kernel applies -- the measured winner at every
-    shape, see ops/pallas_mac.py -- before constructing this).
+    ``mac``: "auto", "jnp" (dense gather + reduce) or "triton" (see
+    :func:`resolve_mac`).
     """
 
     def __init__(self, spec: GraphSpec, mac: str = "auto", taps=None):
         self.spec = spec
         self.taps = taps
-        if mac == "auto":
-            # off-TPU default: the dense MAC (the interpreted Pallas
-            # kernel is orders of magnitude slower); the engine picks
-            # "pallas" explicitly on TPU (runtime/engine.py)
-            mac = "jnp"
-        if mac.startswith("pallas") and not pallas_available(
-                spec.n_bins, spec.real_dtype):
-            mac = "jnp"
-        if mac == "pallas":
-            try:
-                if jax.default_backend() != "tpu":
-                    mac = "pallas-interpret"  # CPU: kernel runs interpreted
-            except RuntimeError:
-                mac = "pallas-interpret"
-        self.mac = mac
-        # the Pallas MAC owns the lane-tiled persistent-state layout
-        # (GraphSpec.tileable); the dense MAC keeps the flat layout
-        self.tiled = mac.startswith("pallas") and spec.tileable
+        self.mac = resolve_mac(mac, spec.real_dtype)
         # Opt-in reduced-precision spectra ring (the input-history side
-        # of the scale-regime MAC's HBM traffic; the bank side is
+        # of the MAC's device-memory traffic; the bank side is
         # BRUTEFIR_TPU_BANK_DTYPE, runtime/engine.py): the persistent
         # [F, B, 2, N] ring is stored bfloat16 and upconverted on load,
         # halving ring-side bytes at ~0.2% signal quantization -- NOT
@@ -98,9 +107,8 @@ class CompiledGraph:
         # ``xfade`` (None = legacy dynamic lax.cond; True/False = the
         # host asserts whether this block crossfades -- see _step_impl).
         self._programs = {}
-        self._uniform_ok = mac == "jnp" or mac.startswith("pallas")
         self._step = self._program(False, None)    # eager: the base program
-        self._step_u = self._program(self._uniform_ok, None)
+        self._step_u = self._program(True, None)
 
     def _program(self, uniform: bool, xfade):
         key = (uniform, xfade)
@@ -108,7 +116,7 @@ class CompiledGraph:
             self._programs[key] = jax.jit(
                 functools.partial(_step_impl, self.spec, self.mac,
                                   taps=self.taps, uniform=uniform,
-                                  tiled=self.tiled, xfade_now=xfade),
+                                  xfade_now=xfade),
                 donate_argnums=(0,))
         return self._programs[key]
 
@@ -117,7 +125,7 @@ class CompiledGraph:
         rd = s.real_dtype
         return StepState(
             prev_in=jnp.zeros((s.n_inputs, s.block_length), rd),
-            ring=jnp.zeros(s.ring_shape(self.tiled), self.ring_dtype),
+            ring=jnp.zeros(s.ring_shape(), self.ring_dtype),
             eval_prev=jnp.zeros((s.n_casc, s.block_length), rd),
             t=jnp.zeros((), jnp.int32),
         )
@@ -129,13 +137,12 @@ class CompiledGraph:
         ``xfade``: host-selected crossfade variant (True/False when the
         caller knows whether ctrl carries a crossfade this block --
         Control.snapshot_xfade; None keeps the legacy in-graph cond)."""
-        return self._program(uniform and self._uniform_ok, xfade)(
-            state, ctrl, bank, x)
+        return self._program(uniform, xfade)(state, ctrl, bank, x)
 
 
 def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
                bank: jax.Array, x: jax.Array, constrain=None, mesh=None,
-               taps=None, uniform=False, tiled=False, pre_X=None,
+               taps=None, uniform=False, pre_X=None,
                uniform_delay=False, xfade_now=None):
     """One block step. ``pre_X``: precomputed input spectra [C_in, 2, N]
     (planes) -- the offline batched path hoists decode+framing+rfft of a
@@ -151,15 +158,13 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
     plain program with no crossfade branch at all (the caller guarantees
     ctrl.xfade is all-zero). ``True`` compiles the always-crossfading
     program; on single-full-stage graphs this takes the fused
-    time-domain crossfade path below. The cond boundary itself measures
-    ~2 ms/block at the 256ch scale shape (layout pinning around the
-    268 MB ring operand), which is why the host-selected split exists.
+    time-domain crossfade path below. The host-selected split keeps the
+    ring out of conditional branch operands on quiet blocks.
 
     ``uniform_delay``: host-selected program variant (like ``uniform``)
     for the case where every filter shares one pre-delay -- the spectra
     ring is then written with a single dynamic_update_slice at the
-    scalar slot instead of a per-filter scatter (measured 0.027 vs
-    0.099 ms at the 256-filter scale shape, TPU v5e). Only taken when a
+    scalar slot instead of a per-filter scatter. Only taken when a
     stage covers every filter in order, so the slice spans the whole
     filter axis; partial stages keep the scatter."""
     def tap(name, planes, idx):
@@ -176,34 +181,16 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
         return io_callback(
             fn, jax.ShapeDtypeStruct(planes.shape, planes.dtype),
             planes, ordered=True)
-    def run_mac(ring_s, idx_arr, coeff_idx, msk, t):
-        if mac.startswith("pallas"):
-            interp = mac == "pallas-interpret"
-            if mesh is not None:
-                # pallas does not auto-partition: run the kernel per-shard
-                # via shard_map when the stage covers the whole 'f'-sharded
-                # filter axis; stage subsets (cascade graphs) keep the
-                # dense path, which XLA shards like any other HLO.
-                if idx_arr.size == spec.n_filters and np.array_equal(
-                        idx_arr, np.arange(spec.n_filters)):
-                    from ..ops.pallas_mac import pallas_spectral_mac_shmap
-                    return pallas_spectral_mac_shmap(
-                        mesh, ring_s, bank, coeff_idx, msk, t,
-                        interpret=interp)
-                return partconv.spectral_mac_rollh(
-                    ring_s, bank, coeff_idx, msk, t)
-            if uniform:
-                from ..ops.pallas_mac import pallas_spectral_mac_uniform
-                return pallas_spectral_mac_uniform(
-                    ring_s, bank, coeff_idx, msk, t, interpret=interp)
-            return pallas_spectral_mac(
-                ring_s, bank, coeff_idx, msk, t, interpret=interp)
-        # rotation composed into the coefficient gather: 2.2x faster than
-        # rotating the ring (see partconv.spectral_mac_rollh). The
-        # ``uniform`` program variant (host-selected when every filter
-        # shares one coeff row + mask row, like bench2/massive) gathers
-        # ONE coefficient row and broadcasts it: 0.33 -> 0.23 ms at the
-        # flagship shape (tools/step_ablate.py).
+    def run_mac(ring_s, coeff_idx, msk, t):
+        if mac == "triton" and mesh is None:
+            from ..ops.triton_mac import triton_spectral_mac
+            return triton_spectral_mac(ring_s, bank, coeff_idx, msk, t)
+        # rotation composed into the coefficient gather (see
+        # partconv.spectral_mac_rollh). The ``uniform`` program variant
+        # (host-selected when every filter shares one coeff row + mask
+        # row, like bench2/massive) gathers ONE coefficient row and
+        # broadcasts it. Under a mesh the dense MAC is sharded by XLA's
+        # partitioner like any other HLO.
         if uniform and mesh is None:
             return partconv.spectral_mac_uniform(ring_s, bank, coeff_idx,
                                                  msk, t)
@@ -211,7 +198,6 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
 
     N = spec.block_length
     B = spec.n_blocks
-    K = spec.n_bins
     F = spec.n_filters
     rd = spec.real_dtype
 
@@ -263,13 +249,16 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
         of bfrun.c:1688-1690): one dynamic_update_slice when the stage
         covers every filter and all delays equal delay[0] (the host-
         detected uniform_delay program variant), else a per-filter
-        scatter. Shared by the fused-mix fast path and the stage loop."""
+        scatter. Shared by the fused crossfade path and the stage loop."""
         blk = blk.astype(ring.dtype)   # bf16 ring opt-in casts on write
         if (uniform_delay and idx.size == F
                 and np.array_equal(idx, np.arange(F))):
-            wpos0 = jnp.mod(t + ctrl.delay[0], B)
+            # one index dtype for every start index, also when float_bits:
+            # 64 has switched Python ints to int64
+            wpos0 = jnp.mod(t + ctrl.delay[0], B).astype(jnp.int32)
+            zero = jnp.zeros((), jnp.int32)
             return jax.lax.dynamic_update_slice(
-                ring, blk[:, None], (0, wpos0) + (0,) * (blk.ndim - 1))
+                ring, blk[:, None], (zero, wpos0) + (zero,) * (blk.ndim - 1))
         wpos = jnp.mod(t + ctrl.delay[idx], B)
         return ring.at[idx, wpos].set(blk)
 
@@ -279,15 +268,10 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
     # (spec.in_src) / every output mixes at most one filter
     # (spec.out_src), the [F, C] / [C, F] mix matmuls collapse to a
     # static gather + per-row scale -- numerically identical (the matmul
-    # rows have a single nonzero). MEASURED SLOWER IN SITU on TPU v5e:
-    # isolated the gather wins (0.036 vs 0.077 ms per mix at the 256-ch
-    # scale shape, in-scan slope), but the composed scale step regresses
-    # 1.84 -> 1.91 ms/block ("1"), 1.88 ("in"), 1.86 ("out") -- the MXU
-    # matmul overlaps with the bandwidth-saturated MAC/FFT regions while
-    # the gather adds competing HBM passes. Kept opt-in
-    # (BRUTEFIR_TPU_SPARSE_MIX=1|in|out); default is the matmul. Mesh
-    # paths always keep the matmul: its contraction is where the
-    # partitioner inserts the psum over 'f'.
+    # rows have a single nonzero). Opt-in (BRUTEFIR_TPU_SPARSE_MIX=
+    # 1|in|out); default is the matmul. Mesh paths always keep the
+    # matmul: its contraction is where the partitioner inserts the psum
+    # over 'f'.
     _sm = os.environ.get("BRUTEFIR_TPU_SPARSE_MIX", "0")
     sparse_in = mesh is None and _sm in ("1", "in")
     sparse_out = mesh is None and _sm in ("1", "out")
@@ -306,51 +290,7 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
             return y_all[srcf] * g[:, None, None]
         return partconv.complex_mix(ctrl.out_mix, y_all)
 
-    # Fused MAC+mix fast path (VERDICT r2 item 4): for the plain
-    # single-stage graph (no cascades, no crossfade, no spectral taps) on
-    # the single-device pallas path, the output-mix contraction runs
-    # INSIDE the MAC kernel's grid with the [C_out, 2, N] output block
-    # VMEM-resident, so the per-filter spectra Y never reach HBM.
-    # VMEM budget: small shapes keep the [C_out, 2, K_local] output
-    # block resident alongside the double-buffered ring+bank rows; big
-    # shapes (256 outputs x 8k bins = 16.8 MB > ~16 MB/core) take the
-    # bin-tiled MXU variant instead (pallas_mac.mix_fusable decides).
-    # Under a mesh the per-device shard sizes apply ('sp' divides the
-    # bins, guaranteed by pallas_shardable when mac is pallas).
-    from ..ops.pallas_mac import mix_fusable
-    _sp = mesh.shape.get("sp", 1) if mesh is not None else 1
-    _Fl = F // (mesh.shape.get("f", 1) if mesh is not None else 1)
-    fused_mix = (mac.startswith("pallas") and not taps
-                 and len(spec.stages) == 1
-                 and spec.stages[0].casc_local.size == 0
-                 and not (spec.stages[0].any_crossfade
-                          and xfade_now is not False)
-                 and np.array_equal(spec.stages[0].idx, np.arange(F))
-                 and mix_fusable(_Fl, B, K // _sp, spec.n_outputs)
-                 and os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") != "0")
-    if fused_mix:
-        from ..ops.pallas_mac import (pallas_spectral_mac_mix,
-                                      pallas_spectral_mac_mix_shmap)
-        mixed = in_mix_stage(np.arange(F), X)              # [F, 2, N]
-        blk = mixed.reshape(F, 2, K // 128, 128) if tiled else mixed
-        ring = write_ring(ring, blk, np.arange(F))
-        if mesh is not None:
-            out_spec = pallas_spectral_mac_mix_shmap(
-                mesh, ring, bank, ctrl.coeff_idx, ctrl.mask, t,
-                ctrl.out_mix, uniform=uniform,
-                interpret=mac == "pallas-interpret")
-        else:
-            out_spec = pallas_spectral_mac_mix(
-                ring, bank, ctrl.coeff_idx, ctrl.mask, t, ctrl.out_mix,
-                uniform=uniform, interpret=mac == "pallas-interpret")
-        out_spec = tap("output_freqd", out_spec, np.arange(spec.n_outputs))
-        if constrain is not None:
-            out_spec = constrain(out_spec)
-        y_time = irfft_fn(out_spec)
-        return StepState(prev_in=x, ring=ring, eval_prev=eval_prev,
-                         t=t + 1), y_time
-
-    # Fused time-domain crossfade (round 4): crossfade_spectra pays two
+    # Fused time-domain crossfade: crossfade_spectra pays two
     # full-size inverse transforms plus a full-size forward re-transform
     # across all F filter rows, only for the result to be output-mixed
     # and inverse-transformed again. The output mix is linear and acts
@@ -358,13 +298,13 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
     #   irfft_valid(mix(rfft([ramped, tail]))) == mix_time(ramped)
     # For a single full stage with no cascades or spectral taps (the
     # crossfaded spectra feed nothing but the output mix), the whole
-    # crossfade collapses to: dual MAC -> THREE mixed spectra
+    # crossfade collapses to: two MAC passes -> THREE mixed spectra
     # (old*sel, new*sel, new*(1-sel), batched into two matmuls) -> ONE
     # batched valid-half inverse transform -> the linear ramp applied in
     # the time domain. Per crossfade block this removes ~3 full-size
-    # F-row transforms; measured at the shapes in docs/PERFORMANCE.md.
-    # Matches convolver_crossfade_inplace (fftw_convolver.c:330-368)
-    # up to the removed transform round-trip's rounding. Only compiled
+    # F-row transforms. Matches convolver_crossfade_inplace
+    # (fftw_convolver.c:330-368) up to the removed transform round-trip's
+    # rounding. Only compiled
     # into the host-selected xfade_now=True program -- no lax.cond.
     fused_xf = (xfade_now is True and not taps and len(spec.stages) == 1
                 and spec.stages[0].casc_local.size == 0
@@ -375,29 +315,11 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
         idx = spec.stages[0].idx
         mixed = in_mix_stage(idx, X)
         mixed = tap("pre_convolve", mixed, idx)  # taps is empty; keep parity
-        blk = mixed.reshape(F, 2, K // 128, 128) if tiled else mixed
-        ring = write_ring(ring, blk, idx)
-        interp = mac == "pallas-interpret"
+        ring = write_ring(ring, mixed, idx)
         cst = constrain if constrain is not None else (lambda a: a)
         C_out = ctrl.out_mix.shape[0]
-
-        if (mac.startswith("pallas")
-                and os.environ.get("BRUTEFIR_TPU_DUAL_XFADE", "1") != "0"):
-            from ..ops.pallas_mac import (pallas_spectral_mac_dual,
-                                          pallas_spectral_mac_dual_shmap)
-            if mesh is not None:
-                y_new, y_old = pallas_spectral_mac_dual_shmap(
-                    mesh, ring, bank, ctrl.coeff_idx, ctrl.mask,
-                    ctrl.prev_idx, ctrl.prev_mask, t,
-                    uniform=uniform, interpret=interp)
-            else:
-                y_new, y_old = pallas_spectral_mac_dual(
-                    ring, bank, ctrl.coeff_idx, ctrl.mask,
-                    ctrl.prev_idx, ctrl.prev_mask, t,
-                    uniform=uniform, interpret=interp)
-        else:
-            y_new = run_mac(ring, idx, ctrl.coeff_idx, ctrl.mask, t)
-            y_old = run_mac(ring, idx, ctrl.prev_idx, ctrl.prev_mask, t)
+        y_new = run_mac(ring, ctrl.coeff_idx, ctrl.mask, t)
+        y_old = run_mac(ring, ctrl.prev_idx, ctrl.prev_mask, t)
 
         # three mixed spectra in two matmuls, one batched valid-half
         # inverse transform, ramp in time: sel-scaled columns express
@@ -443,60 +365,18 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
         # mutation persists in the spectra history like the reference's
         # in-place cbuf[n][curblock] (bfrun.c:1688-1690)
         mixed = tap("pre_convolve", mixed, idx)
-        # persistent ring stays in the lane-tiled layout; only this
-        # small [Fs, 2, N] block pays the reshape (see partconv MAC)
-        blk = (mixed.reshape(idx.size, 2, K // 128, 128) if tiled
-               else mixed)
-        ring = write_ring(ring, blk, idx)
+        ring = write_ring(ring, mixed, idx)
 
         # when the stage covers every filter in order, skip the gather copy
         full = idx.size == F and np.array_equal(idx, np.arange(F))
         ring_s = ring if full else ring[idx]
+        y = run_mac(ring_s, ctrl.coeff_idx[idx], ctrl.mask[idx], t)
 
-        # Crossfade dual-MAC fusion: on the kernel path a crossfade block
-        # computes BOTH coefficient products in one pass over the ring
-        # (pallas_spectral_mac_dual) instead of two kernel calls -- the
-        # ring traffic, which dominates the MAC, is paid once. The mesh
-        # path fuses only full stages (like run_mac's shmap gate).
         # xfade_now=False (host-selected no-crossfade program) drops the
         # whole branch: the caller guarantees ctrl.xfade is all-zero.
-        stage_xf = stage.any_crossfade and xfade_now is not False
-        dual = (stage_xf and mac.startswith("pallas")
-                and (mesh is None or full)
-                and os.environ.get("BRUTEFIR_TPU_DUAL_XFADE", "1") != "0")
-        if dual:
-            from ..ops.pallas_mac import (pallas_spectral_mac_dual,
-                                          pallas_spectral_mac_dual_shmap)
-            interp = mac == "pallas-interpret"
-
-            def xf_on(_, _idx=idx, _ring_s=ring_s):
-                if mesh is not None:
-                    y_new, y_old = pallas_spectral_mac_dual_shmap(
-                        mesh, _ring_s, bank, ctrl.coeff_idx[_idx],
-                        ctrl.mask[_idx], ctrl.prev_idx[_idx],
-                        ctrl.prev_mask[_idx], t,
-                        uniform=uniform, interpret=interp)
-                else:
-                    y_new, y_old = pallas_spectral_mac_dual(
-                        _ring_s, bank, ctrl.coeff_idx[_idx],
-                        ctrl.mask[_idx], ctrl.prev_idx[_idx],
-                        ctrl.prev_mask[_idx], t,
-                        uniform=uniform, interpret=interp)
-                y_xf = partconv.crossfade_spectra(y_old, y_new, N)
-                sel = ctrl.xfade[_idx][:, None, None] > 0
-                return jnp.where(sel, y_xf, y_new)
-
-            def xf_off(_, _idx=idx, _ring_s=ring_s):
-                return run_mac(_ring_s, _idx, ctrl.coeff_idx[_idx],
-                               ctrl.mask[_idx], t)
-
-            y = jax.lax.cond(ctrl.any_xfade, xf_on, xf_off, 0)
-        else:
-            y = run_mac(ring_s, idx, ctrl.coeff_idx[idx], ctrl.mask[idx], t)
-
-        if stage_xf and not dual:
+        if stage.any_crossfade and xfade_now is not False:
             def do_xfade(y, _idx=idx, _ring_s=ring_s):
-                y_old = run_mac(_ring_s, _idx, ctrl.prev_idx[_idx],
+                y_old = run_mac(_ring_s, ctrl.prev_idx[_idx],
                                 ctrl.prev_mask[_idx], t)
                 y_xf = partconv.crossfade_spectra(y_old, y, N)
                 sel = ctrl.xfade[_idx][:, None, None] > 0
@@ -531,234 +411,6 @@ def _step_impl(spec: GraphSpec, mac: str, state: StepState, ctrl: StepCtrl,
 
     new_state = StepState(prev_in=x, ring=ring, eval_prev=eval_prev, t=t + 1)
     return new_state, y_time
-
-
-def group_size(spec: GraphSpec, mac: str, taps, mesh, m: int) -> int:
-    """Blocks per scan iteration for the batched offline dispatch
-    (_group_step_impl): the conditions of the fused MAC+mix fast path
-    (single full stage, no cascades, no spectral taps, single device,
-    lane-tiled state) plus the group kernel's VMEM budget. Returns 1
-    when the per-block scan must be kept. Restricted to the big shapes
-    that take the bin-tiled route anyway -- at small shapes the MAC is
-    a few percent of the step and the resident rowmajor kernel is the
-    measured winner. BRUTEFIR_TPU_PAIR sets the group size (default 4:
-    the fused form is VMEM-capped at G=2, so G=4 takes the unfused
-    kernel -- 1.3511 vs 1.4815 ms/block at the 256ch scale shape, full
-    f32; 0 disables; "force"[:N] enables at any shape for tests)."""
-    env = os.environ.get("BRUTEFIR_TPU_PAIR", "4")
-    force = env.startswith("force")
-    try:
-        G = int(env.split(":", 1)[1]) if force and ":" in env else (
-            2 if force else int(env))
-    except ValueError:
-        G = 2
-    if G in (0, 1):
-        return 1
-    if os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") == "0":
-        # the group kernel is the fused MAC+mix form; with the fused-mix
-        # A/B knob off the per-block scan takes the unfused path, so the
-        # grouped dispatch must stand down too or the knob would no
-        # longer isolate the fused-mix variable
-        return 1
-    if not (mac.startswith("pallas") and not taps
-            and spec.tileable and len(spec.stages) == 1
-            and spec.stages[0].casc_local.size == 0
-            and np.array_equal(spec.stages[0].idx,
-                               np.arange(spec.n_filters))):
-        return 1
-    sp = 1
-    if mesh is not None:
-        # sharded grouped dispatch (the unfused kernel per shard +
-        # partitioner-inserted psum for the mix): needs the shmap
-        # kernel path to fit the mesh; per-shard bins size the VMEM
-        # check below
-        from ..ops.pallas_mac import pallas_shardable
-        if not pallas_shardable(mesh, spec.n_filters, spec.n_bins,
-                                spec.real_dtype):
-            return 1
-        sp = mesh.shape.get("sp", 1)
-    B, K = spec.n_blocks, spec.n_bins
-    if not force:
-        R = K // 128
-        big = (spec.n_outputs + 4 * B) * 2 * R * 128 * 4 > 12 * 2**20
-        if not big:
-            return 1
-    from ..ops.pallas_mac import group_mix_fusable, group_unfused_fusable
-    form = os.environ.get("BRUTEFIR_TPU_GROUP_FORM", "")
-    while G >= 2:
-        # G > 2 may take the UNFUSED grouped MAC (per-filter spectra +
-        # separate output-mix matmul, pallas_spectral_mac_group): the
-        # fused form's output windows are structurally over the scoped-
-        # VMEM budget there (_group_vmem_units). _group_step_impl keys
-        # the same predicates, so selection and dispatch cannot diverge.
-        # G == 2 stays fused-only by default: it is the measured winner
-        # and carries the byte-parity-with-the-scan contract (the
-        # unfused mix is a different f32 contraction order).
-        # BRUTEFIR_TPU_GROUP_FORM=unfused forces the unfused form at any
-        # G (tests / hardware A/B).
-        if m % G == 0 and (
-                (mesh is None and form != "unfused"
-                 and group_mix_fusable(G, spec.n_filters, B, K,
-                                       spec.n_outputs))
-                or ((G > 2 or form == "unfused" or mesh is not None)
-                    and group_unfused_fusable(G, B, K // sp))):
-            return G
-        G -= 1
-    return 1
-
-
-def pair_eligible(spec: GraphSpec, mac: str, taps, mesh) -> bool:
-    """Back-compat gate: any group size >= 2 admissible for even m."""
-    return group_size(spec, mac, taps, mesh, 2) >= 2
-
-
-def _group_step_impl(spec: GraphSpec, mac: str, state: StepState,
-                     ctrl: StepCtrl, bank: jax.Array, xs,
-                     uniform_delay: bool = False, mesh=None,
-                     constrain=None):
-    """G consecutive blocks in one traced program with a SINGLE pass
-    over the spectra ring and the coefficient bank
-    (pallas_spectral_mac_mix_group). At the 256ch scale shape the MAC
-    streams ring+bank at the HBM roofline (docs/PERFORMANCE.md), so
-    cutting its bytes-per-block is the only lever left at full bit
-    parity -- the batched offline dispatch already freezes controls
-    across the batch, which is exactly the group's contract.
-
-    Semantically identical to G _step_impl fused-mix steps: the same
-    per-block terms in the same per-block accumulation order (every
-    schedule-difference slot is masked or fed the group's own fresh
-    spectra -- see the kernel docstring). Only reachable through
-    group_size. ``xs``: list of G input blocks [C, N].
-    Returns (state', [y_0 .. y_{G-1}])."""
-    B = spec.n_blocks
-    K = spec.n_bins
-    F = spec.n_filters
-    G = len(xs)
-    # group_size requires spec.tileable + the pallas MAC: the ring is
-    # always in the lane-tiled [F, B, 2, K/128, 128] layout here
-
-    def gate(frame):
-        if not spec.powersave:
-            return frame
-        thr = jnp.tile(ctrl.ps_thresh, frame.shape[0]
-                       // ctrl.ps_thresh.shape[0])[:, None]
-        peak = jnp.max(jnp.abs(frame), axis=1, keepdims=True)
-        return jnp.where((thr > 0) & (peak < thr),
-                         jnp.zeros_like(frame), frame)
-
-    if mesh is not None:
-        # channel transforms run shard_map-local on replicated operands,
-        # exactly like _step_impl's mesh path (the MAC/ring carries the
-        # sharding; the fft itself never gets partitioned)
-        from jax.sharding import PartitionSpec as _P
-
-        def rfft_fn(a):
-            return jax.shard_map(partconv.rfft_planes, mesh=mesh,
-                                 in_specs=_P(), out_specs=_P(),
-                                 check_vma=False)(a)
-
-        def irfft_fn(a):
-            return jax.shard_map(partconv.irfft_planes_valid, mesh=mesh,
-                                 in_specs=_P(), out_specs=_P(),
-                                 check_vma=False)(a)
-    else:
-        rfft_fn = partconv.rfft_planes
-        irfft_fn = partconv.irfft_planes_valid
-    cst = constrain if constrain is not None else (lambda a: a)
-
-    frames = [jnp.concatenate([p, x], axis=-1)             # [C, 2N] each
-              for p, x in zip([state.prev_in] + list(xs[:-1]), xs)]
-    if os.environ.get("BRUTEFIR_TPU_PAIR_FFT", "split") == "batch":
-        # A/B: one G*C-row batched transform -- measured 0.10 ms/block
-        # SLOWER at the 256ch scale shape (1.597 vs 1.497 composed,
-        # G=2): XLA's batched fft is again slower per row, like the
-        # rejected pre-FFT hoist (device_io.multi_step docstring).
-        Xb = rfft_fn(cst(gate(jnp.concatenate(frames, axis=0))))
-        C = spec.n_inputs
-        blks = [partconv.complex_mix(ctrl.in_mix, Xb[g * C:(g + 1) * C])
-                .reshape(F, 2, K // 128, 128) for g in range(G)]
-    else:
-        # default: one C-row transform per block, exactly the per-block
-        # scan's row count
-        blks = [partconv.complex_mix(
-                    ctrl.in_mix, rfft_fn(cst(gate(f))))
-                .reshape(F, 2, K // 128, 128) for f in frames]
-
-    ring = state.ring
-    t = state.t
-
-    def write_ring(ring, blk, tw):
-        blk = blk.astype(ring.dtype)
-        if uniform_delay:
-            wpos0 = jnp.mod(tw + ctrl.delay[0], B)
-            return jax.lax.dynamic_update_slice(
-                ring, blk[:, None], (0, wpos0) + (0,) * (blk.ndim - 1))
-        wpos = jnp.mod(tw + ctrl.delay, B)
-        return ring.at[jnp.arange(F), wpos].set(blk)
-
-    ring = write_ring(ring, blks[0], t)
-    # later blocks read the ring-rounded spectra either way (bf16 ring
-    # parity): cast the side-channel copies exactly like the writes
-    xnews = jnp.stack([b.astype(ring.dtype) for b in blks[1:]],
-                      axis=1)                      # [F, G-1, 2, R, 128]
-    from ..ops.pallas_mac import (pallas_spectral_mac_mix_group,
-                                  pallas_spectral_mac_group,
-                                  pallas_spectral_mac_group_shmap,
-                                  group_mix_fusable)
-    if mesh is not None:
-        # sharded grouped dispatch: the unfused kernel runs per-shard
-        # (filters x bins, no collectives) and the separate mix matmul
-        # is where the partitioner inserts the psum over 'f' -- the
-        # fused form stays single-device (its in-kernel mix would bury
-        # the reduction inside the custom call)
-        ys_f = pallas_spectral_mac_group_shmap(
-            mesh, ring, xnews, bank, ctrl.coeff_idx, ctrl.mask, t,
-            ctrl.delay, interpret=mac == "pallas-interpret")
-        outs = [partconv.complex_mix(ctrl.out_mix, y) for y in ys_f]
-    elif (os.environ.get("BRUTEFIR_TPU_GROUP_FORM", "") != "unfused"
-            and group_mix_fusable(G, F, B, K, spec.n_outputs)):
-        outs = pallas_spectral_mac_mix_group(
-            ring, xnews, bank, ctrl.coeff_idx, ctrl.mask, t, ctrl.out_mix,
-            ctrl.delay, interpret=mac == "pallas-interpret")
-    else:
-        # unfused grouped MAC (G >= 3, group_size's predicate): the
-        # per-filter spectra take one HBM round trip through the
-        # separate mix matmul, paid for by reading ring+bank once per
-        # G blocks instead of once per 2
-        ys_f = pallas_spectral_mac_group(
-            ring, xnews, bank, ctrl.coeff_idx, ctrl.mask, t, ctrl.delay,
-            interpret=mac == "pallas-interpret")
-        outs = [partconv.complex_mix(ctrl.out_mix, y.reshape(F, 2, K))
-                for y in ys_f]
-    # Tie the deferred writes to the kernel outputs: without this, XLA's
-    # copy-insertion cannot prove the custom call's ring read completes
-    # before the post-kernel dynamic-update-slice and materializes a
-    # full ring copy fused into the FIRST write
-    # (copy_dynamic-update-slice_fusion feeding the kernel operand) --
-    # measured 2.32 vs 1.48 ms/block at the 256ch scale shape. The
-    # barrier is pure ordering; values are unchanged.
-    ring, *outs = jax.lax.optimization_barrier((ring,) + tuple(outs))
-    for g in range(1, G):
-        ring = write_ring(ring, blks[g], t + g)
-
-    if os.environ.get("BRUTEFIR_TPU_PAIR_FFT", "split") == "batch":
-        C_out = spec.n_outputs
-        yb = irfft_fn(cst(jnp.concatenate(outs, axis=0)))
-        ys = [yb[g * C_out:(g + 1) * C_out] for g in range(G)]
-    else:
-        ys = [irfft_fn(cst(o)) for o in outs]
-    new_state = StepState(prev_in=xs[-1], ring=ring,
-                          eval_prev=state.eval_prev, t=t + G)
-    return new_state, ys
-
-
-def _pair_step_impl(spec: GraphSpec, mac: str, state: StepState,
-                    ctrl: StepCtrl, bank: jax.Array, x0: jax.Array,
-                    x1: jax.Array, uniform_delay: bool = False):
-    """Back-compat G=2 wrapper over _group_step_impl."""
-    state, ys = _group_step_impl(spec, mac, state, ctrl, bank, [x0, x1],
-                                 uniform_delay=uniform_delay)
-    return state, ys[0], ys[1]
 
 
 def make_ctrl(

@@ -43,9 +43,7 @@ class GraphSpec:
     # in_mix entry is structurally zero); when every output channel mixes
     # at most one filter, out_src[c] is that filter (0 for none). The
     # compiled step can then replace the [F, C] / [C, F] mix matmuls
-    # with gather+scale (opt-in BRUTEFIR_TPU_SPARSE_MIX: isolated it wins
-    # 0.036 vs 0.077 ms per mix at the 256-ch scale shape, but composed
-    # it regresses ~4% -- see graph/compile.py for the in-situ verdict).
+    # with gather+scale (opt-in BRUTEFIR_TPU_SPARSE_MIX, graph/compile.py).
     # None = general structure, dense matmul.
     in_src: tuple = None       # tuple[int, ...] | None, length F
     out_src: tuple = None      # tuple[int, ...] | None, length n_outputs
@@ -63,25 +61,13 @@ class GraphSpec:
     def complex_dtype(self):
         return np.complex64 if self.real_dtype == np.float32 else np.complex128
 
-    @property
-    def tileable(self) -> bool:
-        """Whether persistent spectra (ring/bank) can use the lane-tiled
-        layout [.., 2, N/128, 128]. The Pallas MAC keeps state tiled so
-        it reads fully populated (sublane, lane) tiles with no per-block
-        relayout (a reshape of the flagship ring inside a scan measured
-        ~0.48 ms/block); the dense MAC keeps the flat [.., 2, N] layout,
-        whose gather-into-reduce fusion XLA compiles far better."""
-        return self.n_bins % 128 == 0
+    def ring_shape(self) -> tuple:
+        """[F, B, 2, K] persistent spectra ring."""
+        return (self.n_filters, self.n_blocks, 2, self.n_bins)
 
-    def ring_shape(self, tiled: bool) -> tuple:
-        K = self.n_bins
-        base = (self.n_filters, self.n_blocks, 2)
-        return base + ((K // 128, 128) if tiled else (K,))
-
-    def bank_shape(self, n_entries: int, tiled: bool) -> tuple:
-        K = self.n_bins
-        base = (n_entries, self.n_blocks, 2)
-        return base + ((K // 128, 128) if tiled else (K,))
+    def bank_shape(self, n_entries: int) -> tuple:
+        """[E, B, 2, K] coefficient bank."""
+        return (n_entries, self.n_blocks, 2, self.n_bins)
 
 
 def build_graph_spec(

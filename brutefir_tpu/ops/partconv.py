@@ -1,6 +1,6 @@
 """Partitioned overlap-save convolution primitives.
 
-TPU-native formulation of the reference convolver (`fftw_convolver.c`,
+Device formulation of the reference convolver (`fftw_convolver.c`,
 `fftw_convfuns.h`). The reference's conventions, restated in rfft terms:
 
 * An input block is the 2N-point frame ``[previous N samples, new N samples]``
@@ -25,18 +25,17 @@ Nyquist bin rides in the imaginary slot of the real DC bin
 (``Xp[0] = X[0].re + 1j X[N].re``), the same folding the reference's SIMD
 layout uses (`fftw_convfuns.h` stores Nyquist at index 4 of group 0 and
 special-cases bins 0/N in every convolve kernel). This keeps every spectral
-axis a power of two -- lane-aligned for the TPU (8192 bins = 64x128) and
-evenly shardable across devices. Bin 0 of a packed spectral product
+axis a power of two -- a clean block size for GPU kernels and evenly
+shardable across devices. Bin 0 of a packed spectral product
 multiplies real and imaginary parts *separately* (two independent real
 spectra), exactly the d1s/d2s special case of the reference kernels.
 
-The dense jnp path below is the correctness baseline; the fused Pallas MAC
-kernel lives in :mod:`brutefir_tpu.ops.pallas_mac`.
+The dense jnp MAC below is the production path on every backend; XLA
+fuses its bank gather into the partition reduction.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 
 import numpy as np
@@ -60,49 +59,14 @@ def unpack_spectrum(Hp):
 
 
 def rfft_packed(x):
-    """rfft of real ``x [..., 2M]`` -> packed spectrum ``[..., M]``.
-
-    The forward and inverse transforms deliberately use DIFFERENT
-    formulations — measured on TPU v5e at the flagship shape (26x16384
-    f32, in-scan slope with the whole output consumed):
-
-    * forward: XLA's full-size **rfft + pack** (38 us) beats an M-point
-      complex FFT of the even/odd interleave plus the hermitian
-      untangle (74 us) — the untangle's lane-reversal (flip/roll) costs
-      more than the saved transform work;
-    * inverse (:func:`irfft_packed`): the **half-size** complex ifft +
-      untangle (43 us) beats XLA's full-size irfft (51 us) — XLA:TPU's
-      irfft is the expensive direction.
-    """
+    """rfft of real ``x [..., 2M]`` -> packed spectrum ``[..., M]``: the
+    full-size real transform (cuFFT on the GPU) plus the bin-0 pack."""
     return pack_spectrum(jnp.fft.rfft(x, axis=-1))
-
-
-def rfft_packed_halfsize(x):
-    """Half-size-complex forward formulation (kept for comparison; the
-    production path is :func:`rfft_packed` — see its docstring)."""
-    M = x.shape[-1] // 2
-    if x.shape[-1] != 2 * M or M < 2:
-        return pack_spectrum(jnp.fft.rfft(x, axis=-1))
-    pairs = x.reshape(*x.shape[:-1], M, 2)
-    z = jax.lax.complex(pairs[..., 0], pairs[..., 1])
-    Z = jnp.fft.fft(z, axis=-1)
-    # Z[(M-k) % M] conjugated: hermitian counterpart of each bin
-    Zr = jnp.conj(jnp.roll(jnp.flip(Z, axis=-1), 1, axis=-1))
-    Xe = (Z + Zr) * 0.5                       # DFT of even samples
-    Xo = (Z - Zr) * -0.5j                     # DFT of odd samples
-    k = jnp.arange(M)
-    W = jnp.exp(-1j * jnp.pi * k / M).astype(Z.dtype)
-    X = Xe + W * Xo                           # rfft bins 0..M-1
-    dc = X[..., :1].real
-    nyq = Xe[..., :1].real - Xo[..., :1].real  # rfft bin M (real)
-    return jnp.concatenate(
-        [jax.lax.complex(dc, nyq).astype(X.dtype), X[..., 1:]], axis=-1)
 
 
 def irfft_packed(Xp):
     """Inverse of :func:`rfft_packed`: packed ``[..., M]`` -> real
-    ``[..., 2M]`` via an M-point complex inverse FFT + interleave
-    (the measured winner for the inverse direction — see rfft_packed)."""
+    ``[..., 2M]`` via an M-point complex inverse FFT + interleave."""
     M = Xp.shape[-1]
     if M < 2:
         return jnp.fft.irfft(unpack_spectrum(Xp), axis=-1)
@@ -127,9 +91,8 @@ def irfft_packed(Xp):
 #
 # On device, spectra are carried as separate real/imag float planes,
 # shape [..., 2, N] (plane axis second-to-last), never as a complex dtype:
-# complex64 on TPU lowers to interleaved pairs with shuffle-heavy multiply,
-# while planes keep every op a plain f32 elementwise/matmul on lane-aligned
-# power-of-two rows, and feed the Pallas MAC kernel directly.
+# planes keep the MAC and the channel mixes plain real elementwise ops and
+# real matmuls over contiguous power-of-two rows.
 
 def c2p(z: jnp.ndarray) -> jnp.ndarray:
     """complex [..., N] -> float planes [..., 2, N]."""
@@ -157,20 +120,12 @@ def make_bank(entries) -> np.ndarray:
 
 
 def rfft_planes(x: jnp.ndarray) -> jnp.ndarray:
-    if _mxu_ok(x.shape[-1] // 2, x.dtype):
-        return rfft_planes_mxu(x)
-    if _pallas_glue_ok(x.shape[-1] // 2, x.dtype):
-        from .pallas_glue import rfft_planes_pallas
-        return rfft_planes_pallas(x)
+    """real ``[..., 2M]`` -> packed spectra planes ``[..., 2, M]``."""
     return c2p(rfft_packed(x))
 
 
 def irfft_planes(p: jnp.ndarray) -> jnp.ndarray:
-    if _mxu_ok(p.shape[-1], p.dtype):
-        return irfft_planes_mxu(p)
-    if _pallas_glue_ok(p.shape[-1], p.dtype):
-        from .pallas_glue import irfft_planes_pallas
-        return irfft_planes_pallas(p)
+    """packed spectra planes ``[..., 2, M]`` -> real ``[..., 2M]``."""
     return irfft_packed(p2c(p))
 
 
@@ -181,19 +136,11 @@ def irfft_planes_valid(p: jnp.ndarray) -> jnp.ndarray:
     the untangle runs as two constant complex multiplies
     (``V[k] = a[k] X[k] + b[k] conj(X[M-k])`` with
     ``a = (1 + i W)/2``, ``b = (1 - i W)/2``, ``W[k] = e^{i pi k / M}``)
-    instead of the Xe/Xo form. Measured 44.7 -> 41.7 us in isolation at
-    the flagship shape (in-scan weighted-consume slope, TPU v5e); the
-    full-step gain is within noise, kept for the smaller live range."""
-    if _mxu_ok(p.shape[-1], p.dtype):
-        return irfft_planes_valid_mxu(p)
-    if _pallas_glue_ok(p.shape[-1], p.dtype):
-        from .pallas_glue import irfft_planes_valid_pallas
-        return irfft_planes_valid_pallas(p)
+    instead of the Xe/Xo form.
+
+    ``BRUTEFIR_TPU_IRFFT=full`` takes XLA's full-size inverse and keeps
+    the lower half instead (an A/B knob; same result to rounding)."""
     if os.environ.get("BRUTEFIR_TPU_IRFFT", "") == "full":
-        # A/B knob (tools/fft_scale_ab.py): XLA's full-size irfft +
-        # slice instead of the half-size untangle; isolated probes at
-        # 256 rows are too noisy to pick a winner, in-situ the untangle
-        # path holds (see docstring measurements)
         return irfft_packed(p2c(p))[..., :p.shape[-1]]
     Xp = p2c(p)
     M = Xp.shape[-1]
@@ -216,193 +163,6 @@ def irfft_planes_valid(p: jnp.ndarray) -> jnp.ndarray:
     zv = z[..., :h]
     return jnp.stack([zv.real, zv.imag], axis=-1).reshape(
         *z.shape[:-1], M)
-
-
-# --- MXU-permutation FFT glue (measured SLOWER; opt-in) ----------------------
-#
-# The real<->complex glue around the transforms (hermitian untangle's
-# lane reversal, even/odd interleave) lowers to shuffle-heavy HLO on TPU
-# and dominates the transform cost (rfft_packed docstring: the glue is
-# ~2/3 of the measured 38/43 us at the flagship shape; XLA's complex-fft
-# core itself is ~12.5 us). These variants express every lane
-# permutation as a matmul against a constant 0/1 matrix instead, which
-# rides the MXU: reversal within a 128-lane register is `x @ J` with J
-# the negate-mod-128 permutation, and the re/im -> even/odd interleave
-# is one [128]->[256] scatter matmul per plane. Permutation matmuls at
-# HIGHEST precision are bit-exact (each output sums exactly one
-# product by 1.0), so these are drop-in replacements.
-#
-# A/B on TPU v5e at the flagship shape (tools/step_breakdown.py,
-# forced-completion slopes, back-to-back sessions): forward 43.2 us vs
-# XLA's 36.9, inverse 50.3 vs 48.5, and the composed dio step 0.187 vs
-# 0.100 ms -- inside the fused step the permutation matmuls contend
-# with the MAC/mix for the MXU, so the "free" lane shuffles are not
-# free at all. Kept as BRUTEFIR_TPU_FFT_GLUE=mxu for re-evaluation on
-# other TPU generations; the default is the XLA glue everywhere.
-
-_LANES = 128
-
-
-@functools.lru_cache()
-def _perm_negmod() -> np.ndarray:
-    """[128, 128] permutation: (x @ J)[l] = x[(128 - l) % 128]."""
-    J = np.zeros((_LANES, _LANES), np.float32)
-    lin = np.arange(_LANES)
-    J[lin, (_LANES - lin) % _LANES] = 1.0
-    return J
-
-
-@functools.lru_cache()
-def _eo_mats() -> tuple:
-    """E/O [128, 256] lane-scatter matrices: (r @ E + i @ O) interleaves
-    two 128-lane registers into one 256-lane pair (E[j, 2j] = 1,
-    O[j, 2j+1] = 1). Their transposes split even/odd lanes."""
-    E = np.zeros((_LANES, 2 * _LANES), np.float32)
-    O = np.zeros((_LANES, 2 * _LANES), np.float32)
-    j = np.arange(_LANES)
-    E[j, 2 * j] = 1.0
-    O[j, 2 * j + 1] = 1.0
-    return E, O
-
-
-def _pmm(x, m):
-    """Permutation matmul over the lane (last) axis, bit-exact."""
-    return jnp.einsum("...rl,lm->...rm", x, jnp.asarray(m, x.dtype),
-                      precision=jax.lax.Precision.HIGHEST)
-
-
-def _mirror_planes(p: jnp.ndarray) -> jnp.ndarray:
-    """planes [..., 2, M] -> planes of X[(M - k) % M] (pure permutation).
-
-    Tiled [R, 128] view: lane negate-mod-128 on the MXU, then the row
-    permutation (rows reversed; lane 0 additionally row-rolled by one,
-    because bin M - 128r - l crosses a chunk boundary between l = 0 and
-    l >= 1) as cheap sublane-axis slices."""
-    M = p.shape[-1]
-    R = M // _LANES
-    t = p.reshape(p.shape[:-1] + (R, _LANES))
-    A = _pmm(t, _perm_negmod())
-    B1 = jnp.flip(A, axis=-2)
-    B2 = jnp.roll(B1, 1, axis=-2)
-    lane0 = jax.lax.broadcasted_iota(jnp.int32, (R, _LANES), 1) == 0
-    return jnp.where(lane0, B2, B1).reshape(p.shape)
-
-
-def _bin0_mask(M):
-    return jax.lax.broadcasted_iota(jnp.int32, (1, M), 1)[0] == 0
-
-
-def rfft_planes_mxu(x: jnp.ndarray) -> jnp.ndarray:
-    """rfft_planes via half-size complex FFT with all glue on the MXU.
-
-    x real [..., 2M] -> packed spectra planes [..., 2, M]. Requires
-    M % 128 == 0 and M >= 256 (use rfft_planes for the general case).
-    """
-    M = x.shape[-1] // 2
-    R = M // _LANES
-    dt = x.dtype
-    E, O = _eo_mats()
-    x4 = x.reshape(x.shape[:-1] + (R, 2 * _LANES))
-    zr = _pmm(x4, E.T).reshape(x.shape[:-1] + (M,))
-    zi = _pmm(x4, O.T).reshape(x.shape[:-1] + (M,))
-    Z = jnp.fft.fft(jax.lax.complex(zr, zi), axis=-1)
-    Zp = c2p(Z)
-    Zm = _mirror_planes(Zp)
-    Zr, Zi = Zp[..., 0, :], Zp[..., 1, :]
-    Mr, Mi = Zm[..., 0, :], -Zm[..., 1, :]        # conj(Z[(M-k) % M])
-    k = np.arange(M)
-    w = np.exp(-1j * np.pi * k / M)               # X = a Z + b conj-mirror
-    a = (1.0 - 1j * w) * 0.5
-    b = (1.0 + 1j * w) * 0.5
-    npdt = np.float32 if dt == jnp.float32 else np.float64
-    ar, ai = a.real.astype(npdt), a.imag.astype(npdt)
-    br, bi = b.real.astype(npdt), b.imag.astype(npdt)
-    Xr = ar * Zr - ai * Zi + br * Mr - bi * Mi
-    Xi = ar * Zi + ai * Zr + br * Mi + bi * Mr
-    # packed bin 0: DC = Re Z0 + Im Z0 (the a/b combine already yields
-    # it); Nyquist = Re Z0 - Im Z0 rides the imaginary slot
-    Xi = jnp.where(_bin0_mask(M), Zr - Zi, Xi)
-    return jnp.stack([Xr, Xi], axis=-2)
-
-
-def _ifft_combine_mxu(p: jnp.ndarray):
-    """Shared pre-ifft combine: packed planes [..., 2, M] -> the M-point
-    complex sequence z whose re/im parts interleave to the 2M-point real
-    inverse transform (a Xk + b conj-mirror, as in irfft_planes_valid)."""
-    M = p.shape[-1]
-    dt = p.dtype
-    pm = _mirror_planes(p)
-    k0 = _bin0_mask(M)
-    Kr, Ki = p[..., 0, :], jnp.where(_bin0_mask(M), 0.0, p[..., 1, :])
-    # mirror bin 0 is DC's slot: the counterpart of bin 0 is Nyquist,
-    # which rides p's own imaginary lane 0
-    Rr = jnp.where(k0, p[..., 1, :], pm[..., 0, :])
-    Ri = jnp.where(k0, 0.0, -pm[..., 1, :])
-    k = np.arange(M)
-    w = np.exp(1j * np.pi * k / M)
-    a = (1.0 + 1j * w) * 0.5
-    b = (1.0 - 1j * w) * 0.5
-    npdt = np.float32 if dt == jnp.float32 else np.float64
-    ar, ai = a.real.astype(npdt), a.imag.astype(npdt)
-    br, bi = b.real.astype(npdt), b.imag.astype(npdt)
-    Vr = ar * Kr - ai * Ki + br * Rr - bi * Ri
-    Vi = ar * Ki + ai * Kr + br * Ri + bi * Rr
-    return jnp.fft.ifft(jax.lax.complex(Vr, Vi), axis=-1)
-
-
-def _interleave_mxu(z: jnp.ndarray) -> jnp.ndarray:
-    """complex [..., L] -> real [..., 2L] even/odd interleave of re/im
-    via one lane-scatter matmul per plane (L % 128 == 0)."""
-    L = z.shape[-1]
-    R = L // _LANES
-    E, O = _eo_mats()
-    zr = z.real.reshape(z.shape[:-1] + (R, _LANES))
-    zi = z.imag.reshape(z.shape[:-1] + (R, _LANES))
-    out = _pmm(zr, E) + _pmm(zi, O)
-    return out.reshape(z.shape[:-1] + (2 * L,))
-
-
-def irfft_planes_mxu(p: jnp.ndarray) -> jnp.ndarray:
-    """irfft_planes with all glue on the MXU: packed planes [..., 2, M]
-    -> real [..., 2M]. Requires M % 128 == 0 and M >= 256."""
-    return _interleave_mxu(_ifft_combine_mxu(p))
-
-
-def irfft_planes_valid_mxu(p: jnp.ndarray) -> jnp.ndarray:
-    """Valid (lower) half of irfft_planes_mxu: [..., 2, M] -> [..., M].
-    Only the first M/2 complex outputs are interleaved; when M/2 is not
-    itself lane-aligned (odd tile-row counts, M = 384, 640, ...) the
-    full inverse runs and is sliced instead -- _interleave_mxu needs a
-    128-multiple lane axis."""
-    M = p.shape[-1]
-    if (M // 2) % 128:
-        return irfft_planes_mxu(p)[..., :M]
-    z = _ifft_combine_mxu(p)
-    return _interleave_mxu(z[..., : M // 2])
-
-
-def _glue_mode() -> str:
-    """FFT-glue dispatch: "mxu" routes eligible shapes through the
-    permutation-matmul variants; "pallas" through the fused VPU
-    mirror+combine kernels (ops/pallas_glue.py).
-    BRUTEFIR_TPU_FFT_GLUE=mxu|pallas|xla; the default is the XLA glue
-    (both alternatives measured slower in situ -- see the section
-    comment above and docs/PERFORMANCE.md). Read per trace, like the
-    sibling knobs (FUSED_MIX, DUAL_XFADE, ...): an lru_cache here froze
-    the first process-wide value and silently ignored later changes."""
-    return os.environ.get("BRUTEFIR_TPU_FFT_GLUE", "xla")
-
-
-def _mxu_ok(M: int, dtype) -> bool:
-    return (_glue_mode() == "mxu" and M % _LANES == 0 and M >= 2 * _LANES
-            and dtype == jnp.float32)
-
-
-def _pallas_glue_ok(M: int, dtype) -> bool:
-    if _glue_mode() != "pallas":
-        return False
-    from .pallas_glue import glue_ok
-    return glue_ok(M, dtype)
 
 
 def preprocess_coeffs(
@@ -445,12 +205,6 @@ def dirac_bank_entry(block_length: int, n_blocks: int, dtype=np.complex64) -> np
     return pack_spectrum(H)
 
 
-def frame_and_fft(prev_tail: jnp.ndarray, new_block: jnp.ndarray) -> jnp.ndarray:
-    """[C, N] x [C, N] -> packed rfft of the 2N overlap-save frame, [C, N]."""
-    frame = jnp.concatenate([prev_tail, new_block], axis=-1)
-    return rfft_packed(frame)
-
-
 def spectral_mac(ring: jnp.ndarray, H: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
     """Partitioned spectral multiply-accumulate (dual-plane).
 
@@ -486,43 +240,23 @@ def spectral_mac_rollh(ring: jnp.ndarray, bank: jnp.ndarray,
     ``Y = sum_j ring[:, j] (*) H[:, (t-j)%B]``: the bank-row gather and
     the ring rotation compose into ONE gather on the (small, reused)
     coefficient side, and the (large, per-block-changing) ring is read
-    unrotated -- XLA then fuses the single gather into the reduction
-    instead of materializing a rotated ring copy. Measured 2.2x faster
-    than the ``jnp.take``-rotated form at the flagship shape (0.16 ms vs
-    0.35 ms; forced-completion slope timing on TPU v5e). Same terms as
+    unrotated, so XLA can fuse the single gather into the reduction
+    instead of materializing a rotated ring copy. Same terms as
     spectral_mac; the partition summation order differs by the rotation,
     so outputs match to float accumulation tolerance.
 
-    ring: [F, B, 2, N] -- or the tiled layout [F, B, 2, N/128, 128] (the
-    engine keeps the persistent ring tiled so the Pallas MAC and the
-    scan-batched paths never pay an N -> (N/128, 128) relayout; a reshape
-    of the 27 MB flagship ring inside a scan measured ~0.48 ms/block).
-    bank: [E, B, 2, N] (tiled likewise when the ring is)
-    coeff_idx: [F] i32
+    ring: [F, B, 2, N]   bank: [E, B, 2, N]   coeff_idx: [F] i32
     mask: [F, B] partition validity (follows the *coefficient* partition
     index, i.e. it is gathered with the same rotation)   t: scalar i32
-    Returns [F, 2, N] packed spectra (untiled).
+    Returns [F, 2, N] packed spectra.
     """
     B = ring.shape[1]
-    if bank.ndim != ring.ndim:   # callers may pass an untiled bank
-        bank = bank.reshape(bank.shape[:1] + ring.shape[1:])
     hpos = jnp.mod(t - jnp.arange(B, dtype=jnp.int32), B)
     # mask stays in the promoted dtype so a bf16 ring/bank (the opt-in
     # reduced-precision knobs) still multiplies and accumulates in f32
     mg = mask[:, hpos].astype(jnp.promote_types(ring.dtype, jnp.float32))
-    H = (bank[coeff_idx[:, None], hpos[None, :]]
-         * mg.reshape(mg.shape + (1,) * (ring.ndim - 2)))
-    rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N] or [F, B, R, 128]
-    hr, hi = H[:, :, 0], H[:, :, 1]
-    yr = jnp.sum(rr * hr - ri * hi, axis=1)        # [F, N] / [F, R, 128]
-    yi = jnp.sum(rr * hi + ri * hr, axis=1)
-    # bin 0: DC and Nyquist are independent real products
-    b0 = (Ellipsis, 0) if ring.ndim == 4 else (Ellipsis, 0, 0)
-    yr0 = jnp.sum(rr[b0] * hr[b0], axis=-1)
-    yi0 = jnp.sum(ri[b0] * hi[b0], axis=-1)
-    yr = yr.reshape(yr.shape[0], -1).at[:, 0].set(yr0)
-    yi = yi.reshape(yi.shape[0], -1).at[:, 0].set(yi0)
-    return jnp.stack([yr, yi], axis=1)             # [F, 2, N]
+    H = bank[coeff_idx[:, None], hpos[None, :]] * mg[:, :, None, None]
+    return _mac_reduce(ring, H)
 
 
 def spectral_mac_uniform(ring: jnp.ndarray, bank: jnp.ndarray,
@@ -532,32 +266,34 @@ def spectral_mac_uniform(ring: jnp.ndarray, bank: jnp.ndarray,
 
     The reference's massive/bench2 workloads drive every filter from one
     shared coeff (`bench2_config`: 26 filters, `coeff: 0`), and its MAC
-    loop re-reads that coeff per filter out of the CPU cache. The TPU
+    loop re-reads that coeff per filter out of the CPU cache. The device
     analog: gather ONE [B, 2, N] coefficient row and broadcast it across
-    the filter axis, cutting the bank-side HBM traffic from F*B*2*N to
-    B*2*N (measured 0.12 -> 0.05 ms at the flagship shape,
-    tools/step_breakdown.py). Only valid when coeff_idx and the mask rows
-    are uniform; the host picks this program variant from its control
-    snapshot (a device-side lax.cond was measured 3x SLOWER than the
-    gather -- conditional operands force the 27 MB ring through branch
-    buffers and break XLA's in-place fusion).
+    the filter axis, cutting the bank-side bytes from F*B*2*N to B*2*N.
+    Only valid when coeff_idx and the mask rows are uniform; the host
+    picks this program variant from its control snapshot, so no
+    device-side conditional carries the ring through branch buffers.
     """
     B = ring.shape[1]
-    if bank.ndim != ring.ndim:   # callers may pass an untiled bank
-        bank = bank.reshape(bank.shape[:1] + ring.shape[1:])
     hpos = jnp.mod(t - jnp.arange(B, dtype=jnp.int32), B)
     mrow = mask[0, hpos].astype(jnp.promote_types(ring.dtype, jnp.float32))
-    H = (bank[coeff_idx[0], hpos]
-         * mrow.reshape(mrow.shape + (1,) * (ring.ndim - 2)))  # [B, 2, ...]
-    rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N] / [F, B, R, 128]
-    hr, hi = H[None, :, 0], H[None, :, 1]          # [1, B, ...]
-    yr = jnp.sum(rr * hr - ri * hi, axis=1)        # [F, N] / [F, R, 128]
+    H = bank[coeff_idx[0], hpos] * mrow[:, None, None]       # [B, 2, N]
+    return _mac_reduce(ring, H[None])
+
+
+def _mac_reduce(ring, H):
+    """sum over partitions of ring (*) H; H broadcasts over filters."""
+    rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N]
+    hr, hi = H[:, :, 0], H[:, :, 1]                # [F or 1, B, N]
+    yr = jnp.sum(rr * hr - ri * hi, axis=1)        # [F, N]
     yi = jnp.sum(rr * hi + ri * hr, axis=1)
-    b0 = (Ellipsis, 0) if ring.ndim == 4 else (Ellipsis, 0, 0)
-    yr0 = jnp.sum(rr[b0] * hr[b0], axis=-1)
-    yi0 = jnp.sum(ri[b0] * hi[b0], axis=-1)
-    yr = yr.reshape(yr.shape[0], -1).at[:, 0].set(yr0)
-    yi = yi.reshape(yi.shape[0], -1).at[:, 0].set(yi0)
+    # bin 0: DC and Nyquist are independent real products. A select
+    # rather than a scatter: it partitions trivially when the bin axis
+    # is sharded
+    yr0 = jnp.sum(rr[..., 0] * hr[..., 0], axis=-1)
+    yi0 = jnp.sum(ri[..., 0] * hi[..., 0], axis=-1)
+    b0 = jnp.arange(ring.shape[-1]) == 0
+    yr = jnp.where(b0, yr0[:, None], yr)
+    yi = jnp.where(b0, yi0[:, None], yi)
     return jnp.stack([yr, yi], axis=1)             # [F, 2, N]
 
 
@@ -599,26 +335,14 @@ def convolve_eval(z: jnp.ndarray, eval_prev: jnp.ndarray, n_fft2: int,
     return c(rfft_planes(frame)), valid
 
 
-def _mix_precision():
-    """MXU precision for the channel mixes. HIGHEST (default, 6-pass
-    bf16) carries the full f32 mantissa; DEFAULT (1-pass bf16) costs ~8
-    bits of the 24-bit audio mantissa (measured ~38000 LSB of S24 error
-    at full scale) and is never used. BRUTEFIR_TPU_MIX_PRECISION=high
-    opts into the 3-pass middle ground (~half the MXU work; accuracy
-    measured by tools/mix_precision_probe.py before trusting it).
-    Read per trace like the sibling knobs (see _glue_mode) -- an
-    lru_cache froze the first process-wide value."""
-    name = os.environ.get("BRUTEFIR_TPU_MIX_PRECISION", "highest")
-    return {"high": jax.lax.Precision.HIGH}.get(
-        name, jax.lax.Precision.HIGHEST)
-
-
 def complex_mix(mix: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Real mixing matrix applied to dual-plane spectra.
 
-    [A, F] @ [F, 2, N] -> [A, 2, N]: one real matmul per plane (MXU).
-    Precision defaults to HIGHEST (see _mix_precision).
+    [A, F] @ [F, 2, N] -> [A, 2, N]: one real matmul per plane. HIGHEST
+    precision keeps the full float32 mantissa: on the GPU the default
+    float32 matmul may run in TF32 (10 mantissa bits), far short of
+    24-bit audio.
     """
     return jnp.einsum("af,fpn->apn", mix, x,
                       preferred_element_type=x.dtype,
-                      precision=_mix_precision())
+                      precision=jax.lax.Precision.HIGHEST)

@@ -2,7 +2,7 @@
 
 The reference scales by forking filter processes and splitting filters and
 channel FFTs across CPUs with pipe barriers (`bfconf.c:2227-2318`,
-`bfrun.c:2311-2328`; SURVEY 2.3). The TPU-native equivalents here are
+`bfrun.c:2311-2328`; SURVEY 2.3). The device equivalents here are
 sharding annotations on one jitted program -- XLA inserts the collectives:
 
 * **bin ("sequence") parallelism** ``sp``: the frequency-bin axis K of the
@@ -62,11 +62,12 @@ def auto_mesh(n_filters: int, n_bins: int, real_dtype,
     the reference (bfconf.c:2893-2931) dissolve into the psum the
     partitioner inserts over 'f'.
 
-    Selection: prefer pure bin-parallelism (sp=n: embarrassingly parallel,
-    one all-gather, no psum), then mixed f x sp meshes, preferring shapes
-    where the Pallas kernel path survives (pallas_shardable); shrink the
-    device count only when nothing divides. Returns None for a single
-    device, when disabled, or when no usable shape exists.
+    Selection: the devices are joined all to all, so the mesh follows
+    the algorithm alone. Prefer pure bin-parallelism (sp=n: embarrassingly
+    parallel, one all-gather, no psum); take a filter axis only where the
+    bins do not divide; shrink the device count only when nothing divides.
+    Returns None for a single device, when disabled, or when no usable
+    shape exists.
 
     ``env`` overrides the BRUTEFIR_TPU_MESH environment variable:
       "off"/"0"/"1"  -> single device (no mesh)
@@ -83,7 +84,6 @@ def auto_mesh(n_filters: int, n_bins: int, real_dtype,
     (bfconf.c:2304-2316).
     """
     import os
-    from ..ops.pallas_mac import pallas_shardable, pallas_available
 
     setting = (os.environ.get("BRUTEFIR_TPU_MESH", "auto")
                if env is None else env)
@@ -124,37 +124,21 @@ def auto_mesh(n_filters: int, n_bins: int, real_dtype,
 
     def usable(f, sp, waive_filters=False):
         if not waive_filters and f > 1 and n_filters % f != 0:
-            return 0
-        trial_mesh = type("M", (), {"shape": {"f": f, "sp": sp}})()
-        if (pallas_available(n_bins, real_dtype)
-                and pallas_shardable(trial_mesh, n_filters, n_bins,
-                                     real_dtype)):
-            return 2                              # kernel path survives
-        if n_bins % sp == 0:
-            return 1                              # dense path shards
-        return 0
+            return False
+        return n_bins % sp == 0
 
     if f_pref > 0:
         # manual placement: honor the process count on the 'f' axis as
         # closely as the device count allows. Padding (engine side)
         # guarantees filter-axis divisibility for any f, so only the
-        # bin axis constrains sp. Same kernel-survival scoring as the
-        # auto path: among f <= f_pref candidates, prefer shapes where
-        # the Pallas MAC shards (a dense-degraded mesh is a large
-        # silent cliff), then the largest f, then the most devices.
-        best = None
-        for total in range(n, 1, -1):
-            divs = [d for d in range(1, total + 1) if total % d == 0]
-            for f in sorted((d for d in divs if d <= f_pref),
-                            key=lambda d: -d):
-                sp = total // f
-                score = usable(f, sp, waive_filters=True)
-                if score and (best is None or (score, f) > best[:2]):
-                    best = (score, f, total)
-            if best is not None and best[0] == 2:
-                break            # kernel-surviving shape at max devices
-        if best is not None:
-            _, f, total = best
+        # bin axis constrains sp: the largest f <= f_pref wins, then
+        # the most devices.
+        fits = [(f, total) for total in range(n, 1, -1)
+                for f in range(1, min(f_pref, total) + 1)
+                if total % f == 0
+                and usable(f, total // f, waive_filters=True)]
+        if fits:
+            f, total = max(fits)
             return make_mesh(devices[:total], f_axis=f, sp_axis=total // f)
         # nothing honors the pins: fall back to the auto heuristic
         # (the engine warns that placement has no effect on f=1 meshes)
@@ -162,40 +146,22 @@ def auto_mesh(n_filters: int, n_bins: int, real_dtype,
     # candidate device counts, largest first; per count, prefer sp-pure
     # then growing f
     for total in range(n, 1, -1):
-        best = None
-        for f in [d for d in range(1, total + 1) if total % d == 0]:
-            sp = total // f
-            score = usable(f, sp)
-            if score and (best is None or score > best[0]):
-                best = (score, f, sp)
-        if best is not None:
-            _, f, sp = best
-            return make_mesh(devices[:total], f_axis=f, sp_axis=sp)
+        for f in range(1, total + 1):
+            if total % f == 0 and usable(f, total // f):
+                return make_mesh(devices[:total], f_axis=f,
+                                 sp_axis=total // f)
     return None
 
 
-def step_shardings(mesh: Mesh, tiled: bool = False, n_tile_rows: int = 0):
-    """(state, ctrl, bank, x, out) sharding pytrees for the compiled step.
-
-    ``tiled``: the spectra ring/bank carry the lane-tiled layout
-    [.., 2, N/128, 128] (GraphSpec.tiled); 'sp' then shards the tile-row
-    axis (same contiguous bin groups, one rank deeper) — or, when the
-    row count ``n_tile_rows`` does not divide over 'sp' (tiny blocks),
-    the 128-lane axis.
-    """
+def step_shardings(mesh: Mesh):
+    """(state, ctrl, bank, x, out) sharding pytrees for the compiled step."""
     def ns(*spec):
         return NamedSharding(mesh, P(*spec))
 
-    sp_n = mesh.shape.get("sp", 1)
-    if tiled and n_tile_rows % sp_n == 0:
-        ring_spec = ("f", None, None, "sp", None)
-    elif tiled:
-        ring_spec = ("f", None, None, None, "sp")
-    else:
-        ring_spec = ("f", None, None, "sp")
+    ring_spec = ("f", None, None, "sp")
     state = StepState(
         prev_in=ns(),                 # [C_in, N] replicated
-        ring=ns(*ring_spec),          # [F, B, 2, (N)] spectra ring
+        ring=ns(*ring_spec),          # [F, B, 2, N] spectra ring
         eval_prev=ns(),               # [n_casc, N] replicated
         t=ns(),
     )
@@ -212,7 +178,7 @@ def step_shardings(mesh: Mesh, tiled: bool = False, n_tile_rows: int = 0):
         any_xfade=ns(),
         ps_thresh=ns(),
     )
-    bank = ns(None, None, *ring_spec[2:])  # [E, B, 2, (N)]
+    bank = ns(None, None, *ring_spec[2:])  # [E, B, 2, N]
     x = ns()                          # [C_in, N] replicated
     y = ns()                          # [C_out, N] replicated
     return state, ctrl, bank, x, y
@@ -222,28 +188,12 @@ class ShardedGraph:
     """A CompiledGraph jitted with multi-device shardings."""
 
     def __init__(self, cg: CompiledGraph, mesh: Mesh):
-        from ..graph.compile import _step_impl
-        import functools
         self.cg = cg
         self.mesh = mesh
-
-        # the pallas kernel runs per-shard via shard_map; if the shape
-        # does not divide over this mesh, degrade to the dense MAC --
-        # and drop the lane-tiled state layout with it (the dense MAC's
-        # gather-into-reduce compiles far better on the flat layout,
-        # graph/spec.py)
-        mac = cg.mac
-        if mac.startswith("pallas"):
-            from ..ops.pallas_mac import pallas_shardable
-            if not pallas_shardable(mesh, cg.spec.n_filters, cg.spec.n_bins,
-                                    cg.spec.real_dtype):
-                mac = "jnp"
-        self.mac = mac
-        self.tiled = cg.tiled and mac.startswith("pallas")
-        st_s, ct_s, bank_s, x_s, y_s = step_shardings(
-            mesh, self.tiled,
-            cg.spec.n_bins // 128 if self.tiled else 0)
-        self.shardings = (st_s, ct_s, bank_s, x_s, y_s)
+        # the Triton MAC does not partition itself: the sharded step
+        # takes the dense MAC, which XLA's partitioner shards
+        self.mac = "jnp"
+        self.shardings = step_shardings(mesh)
 
         def replicate(a):
             # cascade intermediates stay replicated (see convolve_eval)
@@ -263,7 +213,7 @@ class ShardedGraph:
             self._programs[xfade] = jax.jit(
                 functools.partial(_step_impl, self.cg.spec, self.mac,
                                   constrain=self._replicate, mesh=self.mesh,
-                                  tiled=self.tiled, xfade_now=xfade),
+                                  xfade_now=xfade),
                 in_shardings=(st_s, ct_s, bank_s, x_s),
                 out_shardings=(st_s, y_s),
                 donate_argnums=(0,),
@@ -276,7 +226,7 @@ class ShardedGraph:
         rd = s.real_dtype
         st = StepState(
             prev_in=jnp.zeros((s.n_inputs, s.block_length), rd),
-            ring=jnp.zeros(s.ring_shape(self.tiled), self.cg.ring_dtype),
+            ring=jnp.zeros(s.ring_shape(), self.cg.ring_dtype),
             eval_prev=jnp.zeros((s.n_casc, s.block_length), rd),
             t=jnp.zeros((), jnp.int32),
         )
@@ -285,15 +235,6 @@ class ShardedGraph:
 
     def place(self, ctrl: StepCtrl, bank, x):
         _, ct_s, bank_s, x_s, _ = self.shardings
-        spec = self.cg.spec
-        if self.tiled and bank.ndim == 4:
-            bank = np.asarray(bank).reshape(
-                spec.bank_shape(bank.shape[0], True))
-        elif not self.tiled and bank.ndim == 5:
-            # degrade path with a pre-tiled bank (forced pallas on an
-            # indivisible mesh): back to the flat layout
-            bank = np.asarray(bank).reshape(
-                spec.bank_shape(bank.shape[0], False))
         return (jax.tree.map(jax.device_put, ctrl, ct_s),
                 jax.device_put(bank, bank_s),
                 jax.device_put(x, x_s))

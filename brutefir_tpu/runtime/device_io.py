@@ -62,15 +62,13 @@ class DeviceIO:
         spec = engine.spec
         self.mesh = getattr(engine, "mesh", None)
         if self.mesh is not None:
-            # sharded engine: the step inside this program uses the
-            # (possibly degraded) MAC/layout the ShardedGraph resolved,
-            # and the jit below pins the same state/bank shardings --
-            # decode/encode/meters stay replicated (tiny next to the MAC)
+            # sharded engine: the step inside this program uses the MAC
+            # the ShardedGraph resolved, and the jit below pins the same
+            # state/bank shardings -- decode/encode/meters stay
+            # replicated (tiny next to the MAC)
             mac = engine._sharded.mac
-            tiled = engine._sharded.tiled
         else:
             mac = engine.cg.mac
-            tiled = engine.cg.tiled
 
         self.in_words = [device_format_word(d.sample_format)
                          for d in conf.iodevs[IN]]
@@ -79,8 +77,8 @@ class DeviceIO:
 
         # Wire compaction: S24-in-4-byte inputs ship only the 3
         # significant bytes and are sign-extended on device -- 25% less
-        # host->device traffic, which is the end-to-end bottleneck (the
-        # block's audio payload). Exact for in-range data; inputs whose
+        # host->device traffic for the block's audio payload. Exact for
+        # in-range data; inputs whose
         # padding byte is not the sign extension (out-of-spec S24) decode
         # differently from the reference's raw int32 read
         # (raw2real.h:143-153) -- see docs/PARITY.md. Kill switch:
@@ -138,8 +136,8 @@ class DeviceIO:
                 # every physical row is exactly one virtual channel (no
                 # fan-in): a row gather replaces the [used, C] x [C, N]
                 # matmul -- bit-identical (a one-hot HIGHEST matmul row
-                # reduces to the single element) and one less HBM pass
-                # at scale shapes (256x256 x 256x8192 per block)
+                # reduces to the single element) and one pass less over
+                # device memory at scale shapes (256x256 x 256x8192)
                 mix = ("perm", np.asarray([v[0] for v in rows], np.int32))
             else:
                 mix = np.zeros((dev.used_channels, conf.n_channels[OUT]),
@@ -377,8 +375,8 @@ class DeviceIO:
                 if isinstance(mixm, tuple):           # ("perm", rows)
                     phys = y[mixm[1]]
                 else:
-                    # HIGHEST: the MXU's default f32 matmul is bf16-based,
-                    # far below 24-bit audio precision (see partconv)
+                    # HIGHEST: full float32, not TF32 (see
+                    # partconv.complex_mix)
                     phys = jnp.matmul(mixm, y,
                                       precision=jax.lax.Precision.HIGHEST)
                 peak = jnp.max(jnp.abs(phys), axis=1)
@@ -405,7 +403,7 @@ class DeviceIO:
 
         self._input_half = input_half
         self._output_half = output_half
-        self._core_refs = (mac, tiled, mesh_, constrain_, spec_)
+        self._core_refs = (mac, mesh_, constrain_, spec_)
 
         def full_step(state, ctrl, in_gain, out_gain, bank, in_words,
                       dstate, dvec_in=None, dvec_out=None,
@@ -421,7 +419,7 @@ class DeviceIO:
                 # test backend rejects (see parallel/mesh.py docstring)
                 x = constrain_(x)
             state, y = _step_impl(spec_, mac, state, ctrl, bank, x,
-                                  uniform=uniform, tiled=tiled,
+                                  uniform=uniform,
                                   mesh=mesh_, constrain=constrain_,
                                   uniform_delay=uniform_delay,
                                   xfade_now=xfade_now)
@@ -433,14 +431,12 @@ class DeviceIO:
             return state, tuple(outs), tuple(meters), nan_ok, new_dstate
 
         self._full_step = full_step
-        self._uniform_ok = mac == "jnp" or mac.startswith("pallas")
         if mesh_ is not None:
             # pin the persistent state/ctrl/bank shardings; everything
             # else (wire words, meters, dither/delay state) is replicated
             from jax.sharding import NamedSharding, PartitionSpec as P
             from ..parallel.mesh import step_shardings
-            st_s, ct_s, bank_s, _, _ = step_shardings(
-                mesh_, tiled, spec.n_bins // 128 if tiled else 0)
+            st_s, ct_s, bank_s, _, _ = step_shardings(mesh_)
             repl = NamedSharding(mesh_, P())
             self._in_sh = (st_s, ct_s, repl, repl, bank_s,
                            repl, repl, repl, repl, repl, repl, repl, repl)
@@ -458,7 +454,7 @@ class DeviceIO:
         self._multi = {}
 
     def _program(self, uniform: bool, xfade):
-        key = (uniform and self._uniform_ok, xfade)
+        key = (uniform, xfade)
         if key not in self._steps:
             self._steps[key] = jax.jit(
                 functools.partial(self._full_step, uniform=key[0],
@@ -538,8 +534,7 @@ class DeviceIO:
         """Pre-stage the control pytree on device, reused while the
         snapshot object is unchanged (RuntimeControl.snapshot returns a
         cached instance between control changes). Saves ~11 small host
-        uploads per block on the realtime path -- on a remote transport
-        each numpy argument of the jitted call is a per-block transfer."""
+        uploads per block on the realtime path."""
         if ctrl is not self._staged_src:
             if self._in_sh is not None:
                 self._staged = jax.device_put(ctrl, self._in_sh[1])
@@ -576,47 +571,17 @@ class DeviceIO:
         BRUTEFIR_TPU_PREFFT=1 opts into the pre-FFT-hoisted variant:
         decode, input delay/subdelay, gains, framing and the forward rfft
         of all m blocks run as one batched computation before the scan
-        (they depend only on the input stream, not the ring). MEASURED
-        SLOWER on TPU v5e at the flagship shape -- 0.309 vs 0.138
-        ms/block interleaved same-session A/B (tools/prefft_ab.py): the
-        in-scan forward transform fuses into the step with VMEM-resident
-        intermediates, while the hoisted batch pays several full HBM
-        passes over the ~136 MB frames/spectra batch. Kept as an opt-in
+        (they depend only on the input stream, not the ring). An opt-in
         experiment; the scanned path is the default.
         """
-        key = (m, uniform and self._uniform_ok, bool(udelay), xfade)
+        key = (m, uniform, bool(udelay), xfade)
         if key not in self._multi:
-            # Grouped dispatch (G blocks per scan iteration): when the
-            # host asserts no crossfade for the batch (xfade=False, the
-            # common offline case) and the graph qualifies at a big
-            # shape, each scan iteration runs G blocks' step with ONE
-            # pass over the spectra ring and coefficient bank
-            # (graph/compile._group_step_impl) -- the MAC is at the HBM
-            # roofline there, so this divides its per-block bandwidth
-            # cost by ~G. G=2 takes the fused MAC+mix kernel and is
-            # bit-identical to the per-block scan; the default G=4
-            # takes the unfused kernel + separate mix matmul (the fused
-            # form is VMEM-capped at 2) -- same f32 precision, a
-            # different mix contraction order, parity-tested against
-            # the scan (test_pair_step.py). G must divide m; batch
-            # sizes default to 8 (BRUTEFIR_TPU_PAIR sets G).
-            mac_, _, mesh_, _, ps_spec = self._core_refs
-            if xfade is False:
-                from ..graph.compile import group_size
-                # taps is hard-coded None: the batched dispatch never
-                # carries module spectral taps (full_step likewise passes
-                # none into _step_impl) -- if taps ever reach this path,
-                # group_size must see them or the grouped program would
-                # silently skip them
-                G = group_size(ps_spec, mac_, None, mesh_, m)
-                if G >= 2:
-                    return self._multi_step_grouped(m, G, key)
             if os.environ.get("BRUTEFIR_TPU_PREFFT", "0") != "1":
                 return self._multi_step_scanned(m, key)
             N = self.N
             input_half = self._input_half
             output_half = self._output_half
-            mac, tiled, mesh_, constrain_, ps_spec = self._core_refs
+            mac, mesh_, constrain_, ps_spec = self._core_refs
             if mesh_ is not None:
                 from jax.sharding import PartitionSpec as _P
                 from ..ops import partconv as _pc
@@ -657,7 +622,7 @@ class DeviceIO:
                     st, ds = carry
                     Xk, xk = inp
                     st, y = _step_impl(ps_spec, mac, st, ctrl, bank, xk,
-                                       uniform=key[1], tiled=tiled,
+                                       uniform=key[1],
                                        mesh=mesh_, constrain=constrain_,
                                        pre_X=Xk, uniform_delay=key[2],
                                        xfade_now=key[3])
@@ -702,8 +667,7 @@ class DeviceIO:
 
     def _multi_step_scanned(self, m: int, key):
         """Default batched dispatch: the whole per-block step (incl.
-        decode and forward rfft) inside the scan body -- the measured
-        winner on TPU v5e (see multi_step docstring)."""
+        decode and forward rfft) inside the scan body."""
         fs = functools.partial(self._full_step, uniform=key[1],
                                uniform_delay=key[2], xfade_now=key[3])
 
@@ -720,63 +684,6 @@ class DeviceIO:
 
             (state, dstate), (outs, meters, nans) = jax.lax.scan(
                 body, (state, dstate), tuple(in_words))
-            return state, outs, _agg_meters(meters), jnp.all(nans), dstate
-
-        return self._register_multi(key, multi)
-
-    def _multi_step_grouped(self, m: int, G: int, key):
-        """Batched dispatch at G blocks per scan iteration (see
-        multi_step): the IO halves run per block in order (the dither /
-        delay-window state chains exactly like the per-block scan), the
-        graph step runs as _group_step_impl with the single-pass G-block
-        MAC. Output stacks and meters are reshaped back to per-block
-        [m, ...] so the dispatch contract matches _multi_step_scanned."""
-        input_half = self._input_half
-        output_half = self._output_half
-        mac, tiled, mesh_, constrain_, ps_spec = self._core_refs
-        from ..graph.compile import _group_step_impl
-        group_fn = functools.partial(_group_step_impl, ps_spec, mac,
-                                     uniform_delay=key[2], mesh=mesh_,
-                                     constrain=constrain_)
-
-        def multi(state, ctrl, in_gain, out_gain, bank, in_words,
-                  dstate, dvec_in, dvec_out, sri, sbi, sro, sbo):
-            groups = tuple(
-                w.reshape((m // G, G) + w.shape[1:]) for w in in_words)
-
-            def body(carry, wordsg):
-                st, ds = carry
-                xs = []
-                for g in range(G):
-                    nd = dict(ds)
-                    xs.append(input_half([w[g] for w in wordsg], ds, nd,
-                                         in_gain, dvec_in, sri, sbi))
-                    ds = nd
-                st, ys = group_fn(st, ctrl, bank, xs)
-                outsg, metsg, nans = [], [], []
-                for y in ys:
-                    nd = dict(ds)
-                    o, mt, nan, nd = output_half(
-                        y, ds, nd, out_gain, dvec_out, sro, sbo)
-                    ds = nd
-                    outsg.append(o)
-                    metsg.append(mt)
-                    nans.append(nan)
-                outs = tuple(jnp.stack(per_dev)
-                             for per_dev in zip(*outsg))
-                mets = tuple(jnp.stack(per_dev)
-                             for per_dev in zip(*metsg))
-                nan_ok = nans[0]
-                for nan in nans[1:]:
-                    nan_ok = nan_ok & nan
-                return (st, ds), (outs, mets, nan_ok)
-
-            (state, dstate), (outs, meters, nans) = jax.lax.scan(
-                body, (state, dstate), groups)
-            outs = tuple(
-                o.reshape((m,) + o.shape[2:]) for o in outs)
-            meters = tuple(
-                md.reshape((m,) + md.shape[2:]) for md in meters)
             return state, outs, _agg_meters(meters), jnp.all(nans), dstate
 
         return self._register_multi(key, multi)

@@ -34,7 +34,7 @@ def test_auto_mesh_env_explicit():
 
 
 def test_auto_mesh_dense_divisible():
-    """Bins not lane-tileable: falls back to a dense-shardable sp."""
+    """Bins that are not a power of two still shard evenly on sp."""
     m = auto_mesh(4, 96, np.dtype(np.float32), env="auto")
     assert m is not None
     f, sp = m.shape["f"], m.shape["sp"]

@@ -1,6 +1,6 @@
 """Composed runtime-mutation torture: one file-to-file run driving every
 mutation family the reference's filter loop handles in a single pass
-(/root/reference/bfrun.c:1574-1777) -- per-block `cfc` coefficient swaps
+(bfrun.c:1574-1777) -- per-block `cfc` coefficient swaps
 with `crossfade: true;`, an EQ logic-module re-render hot-swapped through
 the coeff_final redirect (bflogic_eq.c:105-120), a `cfd` filter-delay
 change, and a `cid` input-delay change -- on a bench1-style cascade
@@ -293,31 +293,19 @@ def ring_sim(w, h, n_blocks, N, B, delay_at):
     return out
 
 
-@pytest.mark.parametrize("pair_env", ["0", "force"])
-def test_composed_mutation_offline_grouped(tmp_path, monkeypatch, pair_env):
-    """The grouped-dispatch (batched offline) schedule under the same
-    mutation families: coeff swaps with crossfade, a cfd filter-delay
-    change, and a cid input-delay change land BETWEEN run_offline
-    segments, so batches alternate between the grouped program (no
-    crossfade pending, G blocks per ring+bank pass) and the per-block
-    xfade program + odd-size scanned remainder -- the eligibility flips
-    of VERDICT r4 item 4. Both BRUTEFIR_TPU_PAIR settings must check the
-    SAME committed golden, and the force run must actually dispatch the
-    grouped program (spied), or this is jnp-vs-jnp."""
-    from brutefir_tpu.runtime.device_io import DeviceIO
-
-    monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair_env)
-    # the grouped program exists only on the pallas MAC (group_size);
-    # on the CPU suite this resolves to the interpreted kernel
-    monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
-    grouped_calls = []
-    orig = DeviceIO._multi_step_grouped
-
-    def spy(self, m, G, key):
-        grouped_calls.append((m, G))
-        return orig(self, m, G, key)
-
-    monkeypatch.setattr(DeviceIO, "_multi_step_grouped", spy)
+@pytest.mark.parametrize("mac", ["jnp", "triton"])
+def test_composed_mutation_offline_grouped(tmp_path, request, mac):
+    """The batched offline schedule under the same mutation families:
+    coeff swaps with crossfade, a cfd filter-delay change, and a cid
+    input-delay change land BETWEEN run_offline segments, so batches
+    alternate between the scanned program (no crossfade pending) and the
+    per-block xfade program + scanned remainder. Both MACs (the Triton
+    kernel interpreted) meet the oracle; the dense MAC's bytes are pinned
+    by the committed golden."""
+    if mac == "triton":
+        request.getfixturevalue("triton_interpret")
+    os.environ["BRUTEFIR_TPU_MAC"] = mac
+    request.addfinalizer(lambda: os.environ.pop("BRUTEFIR_TPU_MAC", None))
 
     rng = np.random.default_rng(0xD15C)
     n_blocks = 24
@@ -353,14 +341,7 @@ def test_composed_mutation_offline_grouped(tmp_path, monkeypatch, pair_env):
     finally:
         eng.teardown()
 
-    if pair_env == "force":
-        # routing proof: the grouped program really ran for the
-        # crossfade-free full batches (m=4), and stood down to the
-        # scanned remainder after each xfade block (m=3 is odd)
-        assert (4, 2) in grouped_calls, grouped_calls
-        assert all(m % G == 0 for m, G in grouped_calls)
-    else:
-        assert grouped_calls == []
+    assert eng.cg.mac == mac
 
     y = np.fromfile(outp, "<i4").reshape(-1, 2).T.astype(np.float64)
     assert y.shape[1] == n
@@ -389,8 +370,9 @@ def test_composed_mutation_offline_grouped(tmp_path, monkeypatch, pair_env):
     np.testing.assert_allclose(y[0], ch0 / s, rtol=0, atol=tol0)
     np.testing.assert_allclose(y[1], ch1 / s, rtol=0, atol=tol1)
 
-    raw = np.fromfile(outp, np.uint8).tobytes()
-    check_golden("composed_mutation_offline_1024x4", raw)
+    if mac == "jnp":
+        raw = np.fromfile(outp, np.uint8).tobytes()
+        check_golden("composed_mutation_offline_1024x4", raw)
 
 
 def test_offline_xfade_crossfades_one_block(tmp_path):
@@ -525,15 +507,16 @@ filter 0 {{ crossfade: true; from_inputs: 0; to_outputs: 0; coeff: 0; }};
     np.testing.assert_array_equal(go("batch2"), ref)
 
 
-@pytest.mark.parametrize("pair_env", ["0", "force"])
-def test_composed_mutation_torture(tmp_path, monkeypatch, pair_env):
-    """The full mutation storm against the sequential oracle, under both
-    grouped-dispatch settings: the script forces the per-block run()
-    path where the grouped program must stand down (group dispatch is an
-    offline-batch contract), so the BRUTEFIR_TPU_PAIR knob must not
-    change a single output byte -- both parametrizations check the SAME
-    committed golden."""
-    monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair_env)
+@pytest.mark.parametrize("mac", ["jnp", "triton"])
+def test_composed_mutation_torture(tmp_path, request, mac):
+    """The full mutation storm against the sequential oracle through the
+    per-block run() path, with either MAC (the Triton kernel
+    interpreted); the dense MAC's bytes are pinned by the committed
+    golden."""
+    if mac == "triton":
+        request.getfixturevalue("triton_interpret")
+    os.environ["BRUTEFIR_TPU_MAC"] = mac
+    request.addfinalizer(lambda: os.environ.pop("BRUTEFIR_TPU_MAC", None))
     x, h0, h1, hm, y, n_blocks, n = _run_torture(tmp_path)
     fin, eqf = _oracle(x, h0, h1, hm, n_blocks, n)
 
@@ -542,5 +525,6 @@ def test_composed_mutation_torture(tmp_path, monkeypatch, pair_env):
     np.testing.assert_allclose(y[0], fin, rtol=0, atol=tol0)
     np.testing.assert_allclose(y[1], eqf, rtol=0, atol=tol1)
 
-    raw = np.fromfile(tmp_path / "out.raw", np.uint8).tobytes()
-    check_golden("composed_mutation_8192x8", raw)
+    if mac == "jnp":
+        raw = np.fromfile(tmp_path / "out.raw", np.uint8).tobytes()
+        check_golden("composed_mutation_8192x8", raw)

@@ -1,5 +1,7 @@
 """Config-language parser tests against the reference's shipped configs."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -7,7 +9,7 @@ from brutefir_tpu.config.lexer import tokenize, T, ConfigParseError
 from brutefir_tpu.config.parser import parse_config, parse_config_file, from_db
 from brutefir_tpu.config.model import IN, OUT
 
-REF = "/root/reference"
+REF = os.path.join(os.path.dirname(__file__), "data")
 
 
 def test_lexer_basics():

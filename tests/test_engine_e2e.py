@@ -332,10 +332,9 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; crossfade: true; }};
     np.testing.assert_allclose(y, x[:, 0], atol=1)
 
 
-def test_sink_mode_prefetch_and_amortized_drain(tmp_path):
-    """Sink mode (no device->host samples) uses the input-prefetch
-    producer thread and the amortized device drain; block/frame
-    accounting, the EOF tail, and early stop must match a normal run."""
+def test_dev_null_run_block_accounting(tmp_path):
+    """A file -> /dev/null run counts blocks and frames through the EOF
+    tail, and an early stop at max_blocks stops exactly there."""
     rng = np.random.default_rng(7)
     frames_total = 8 * 256 + 100
     x = (rng.standard_normal((frames_total, 2)) * 1e6).astype("<i4")
@@ -352,12 +351,11 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
 """)
     eng = Engine(conf)
     assert eng.dio is not None
-    stats = eng.run(sink_output=True)
+    stats = eng.run()
     assert stats["blocks"] == 9          # 8 full + 1 partial block
     assert stats["frames"] == frames_total
-    # early stop exercises the producer-thread cleanup path
     eng2 = Engine(conf)
-    stats2 = eng2.run(max_blocks=3, sink_output=True)
+    stats2 = eng2.run(max_blocks=3)
     assert stats2["blocks"] == 3
 
 
@@ -399,14 +397,11 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
                   - outs["host"].astype(np.int64)).max() <= 1
 
 
-def test_forced_pallas_mac_on_cpu_runs_interpreted(tmp_path, monkeypatch):
-    """BRUTEFIR_TPU_MAC=pallas on a non-TPU backend degrades to the
-    interpreted kernel instead of failing at compile."""
-    monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
-    x = (np.random.RandomState(3).randn(2 * 256, 1) * 1e6).astype("<i4")
+def _mac_conf(tmp_path, x, float_bits=32):
     inp = tmp_path / "in.raw"
     x.tofile(inp)
-    conf = parse_config(f"""
+    return parse_config(f"""
+float_bits: {float_bits};
 sampling_rate: 44100;
 filter_length: 256,2;
 coeff 0 {{ filename: "dirac pulse"; }};
@@ -414,12 +409,66 @@ input 0 {{ device: "file" {{ path: "{inp}"; }}; sample: "S32_LE"; channels: 1; }
 output 0 {{ device: "file" {{ path: "{tmp_path / 'o.raw'}"; }}; sample: "S32_LE"; channels: 1; dither: false; }};
 filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
 """)
-    eng = Engine(conf)
-    assert eng.cg.mac == "pallas-interpret"
+
+
+@pytest.mark.parametrize("mac,want", [("auto", "jnp"), ("jnp", "jnp")])
+def test_mac_choice_without_triton_route(tmp_path, monkeypatch, mac, want):
+    """Where the backend cannot compile the Triton kernel (the CPU),
+    auto resolves to the dense MAC -- a capability test, not a platform
+    name."""
+    monkeypatch.setenv("BRUTEFIR_TPU_MAC", mac)
+    x = (np.random.RandomState(3).randn(2 * 256, 1) * 1e6).astype("<i4")
+    eng = Engine(_mac_conf(tmp_path, x))
+    assert eng.cg.mac == want
     stats = eng.run()
     assert stats["frames"] == 2 * 256
     y = np.fromfile(tmp_path / "o.raw", dtype="<i4")
     assert np.abs(y.astype(np.int64) - x[:, 0].astype(np.int64)).max() <= 1
+
+
+@pytest.mark.parametrize("mac", ["triton", "pallas", "pallas-interpret"])
+def test_mac_choice_refused_is_config_error(tmp_path, monkeypatch, mac):
+    """An explicit Triton MAC on a backend without a Triton route, and the
+    names of removed kernels, are typed config errors, never a silent
+    fallback or an interpreted kernel."""
+    from brutefir_tpu.errors import BFError, BF_EXIT_INVALID_CONFIG
+    monkeypatch.setenv("BRUTEFIR_TPU_MAC", mac)
+    x = np.zeros((256, 1), "<i4")
+    with pytest.raises(BFError) as ei:
+        Engine(_mac_conf(tmp_path, x))
+    assert ei.value.exit_code == BF_EXIT_INVALID_CONFIG
+
+
+@pytest.mark.parametrize("mac", ["auto", "triton"])
+def test_triton_mac_engine_matches_dense(tmp_path, monkeypatch,
+                                         triton_interpret, mac):
+    """With a Triton route (here the interpreter) auto selects the
+    kernel; its file-to-file output matches the dense MAC's."""
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((6 * 256, 1)) * 1e6).astype("<i4")
+    outs = {}
+    for m in (mac, "jnp"):
+        monkeypatch.setenv("BRUTEFIR_TPU_MAC", m)
+        eng = Engine(_mac_conf(tmp_path, x))
+        assert eng.cg.mac == ("triton" if m != "jnp" else "jnp")
+        eng.run()
+        outs[m] = np.fromfile(tmp_path / "o.raw", dtype="<i4")
+    assert np.abs(outs[mac].astype(np.int64) - outs["jnp"]).max() <= 1
+
+
+def test_float64_graph_keeps_dense_mac(tmp_path, monkeypatch,
+                                       triton_interpret):
+    """The Triton kernel accumulates in float32, so a float_bits: 64
+    graph resolves auto to the dense MAC even where the kernel exists."""
+    import jax
+    monkeypatch.setenv("BRUTEFIR_TPU_MAC", "auto")
+    x = np.zeros((256, 1), "<i4")
+    try:
+        eng = Engine(_mac_conf(tmp_path, x, float_bits=64))
+        assert eng.cg.mac == "jnp"
+    finally:
+        # the engine switches 64-bit types on process-wide
+        jax.config.update("jax_enable_x64", False)
 
 
 def test_device_io_s24_3byte_matches_host(tmp_path):

@@ -3,7 +3,7 @@
 The dirac-identity runs in test_reference_configs.py exercise the engine
 plumbing but a sign/indexing bug that cancels under diracs would slip
 through them. These tests run bench1/2/3/5 at the EXACT shipped shapes
-(`/root/reference/bench1_config`..`bench5_config`: 8192x8 and 65536x1,
+(tests/data/bench1_config..bench5_config: 8192x8 and 65536x1,
 26 channels, the 6-filter cascade, the crossfade-every-block script,
 `bfrun.c:1745-1754`) with random real coefficients, file-to-file through
 the real engine, against float64 scipy oracles.
@@ -31,7 +31,7 @@ import scipy.signal
 from brutefir_tpu.config import parse_config
 from brutefir_tpu.runtime import Engine
 
-REF = "/root/reference"
+REF = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden",
                            "fullshape_goldens.json")
 
@@ -189,7 +189,7 @@ def test_bench4_fullshape_kitchen_sink_random_taps(tmp_path, rng):
     and polarity, a one-block pre-delay, a shared cascade node, a
     `blocks: 1` coefficient truncation, and the DITHERED S16 output --
     with two DISTINCT random coefficient sets, against a float64 numpy
-    oracle (/root/reference/bench4_config:1, real2raw.h:44-59).
+    oracle (tests/data/bench4_config, real2raw.h:44-59).
 
     Both output byte streams are pinned by committed goldens: the
     dither generator is seeded with the reference's fixed seed

@@ -182,10 +182,9 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
         np.testing.assert_allclose(y[b * N: (b + 1) * N], seg, atol=1e-5)
 
 
-def test_benchmark_stage_breakdown_table(tmp_path, rng, monkeypatch, capfd):
-    """BRUTEFIR_TPU_STAGE_BREAKDOWN=1 prints the 8-column table
-    (reference bfrun.c:2035-2078 parity; device split calibrated)."""
-    monkeypatch.setenv("BRUTEFIR_TPU_STAGE_BREAKDOWN", "1")
+def test_benchmark_stage_breakdown_table(tmp_path, rng, capfd):
+    """benchmark: true prints the per-stage timing table every 10 periods
+    (the reference's benchmark table, bfrun.c:2035-2078)."""
     N = 128
     x = rng.standard_normal(N * 12).astype(np.float32) * 0.2
     inp = tmp_path / "in.f32"
@@ -201,13 +200,12 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
 """)
     Engine(conf).run()
     err = capfd.readouterr().err
-    assert "device stage calibration" in err
-    for col in ("t2f", "mix1", "conv", "mix2", "f2t", "decode", "encode"):
+    for col in ("decode/ms", "device/ms", "encode/ms", "total/ms", "rti"):
         assert col in err
 
 
 def test_watchdog_aborts_stalled_run(tmp_path, monkeypatch):
-    """BRUTEFIR_TPU_WATCHDOG kills a run whose device/transport stalls
+    """BRUTEFIR_TPU_WATCHDOG kills a run whose device stalls
     (here: an input device that blocks forever after one block)."""
     import os
     import subprocess
@@ -253,5 +251,5 @@ print("UNREACHABLE")
     r = subprocess.run([_sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 1
-    assert "stalled device or transport" in r.stderr
+    assert "stalled device" in r.stderr
     assert "UNREACHABLE" not in r.stdout

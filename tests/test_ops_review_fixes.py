@@ -8,27 +8,26 @@ from brutefir_tpu.ops import partconv as pc
 
 
 @pytest.mark.parametrize("M", [384, 640])
-def test_mxu_valid_inverse_odd_row_count(M, rng):
-    """M lane-aligned but M/2 not (odd tile-row counts): the MXU valid
-    inverse must fall back to full+slice instead of crashing in
-    _interleave_mxu."""
+def test_valid_inverse_odd_row_count(M, rng):
+    """Bin counts whose half is not a power of two: the valid-half
+    inverse (half-size untangle) equals the full inverse's lower half."""
     p = jnp.asarray(rng.standard_normal((2, 2, M)).astype(np.float32))
     ref = np.asarray(pc.irfft_packed(pc.p2c(p)))[..., :M]
-    got = np.asarray(pc.irfft_planes_valid_mxu(p))
+    got = np.asarray(pc.irfft_planes_valid(p))
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=2e-4 * np.abs(ref).max())
 
 
-def test_mix_precision_reads_env_per_call(monkeypatch):
-    """BRUTEFIR_TPU_MIX_PRECISION is read per trace, not frozen by a
-    cache (the stale-knob bug _glue_mode documents)."""
-    import jax
-    monkeypatch.delenv("BRUTEFIR_TPU_MIX_PRECISION", raising=False)
-    assert pc._mix_precision() == jax.lax.Precision.HIGHEST
-    monkeypatch.setenv("BRUTEFIR_TPU_MIX_PRECISION", "high")
-    assert pc._mix_precision() == jax.lax.Precision.HIGH
-    monkeypatch.delenv("BRUTEFIR_TPU_MIX_PRECISION")
-    assert pc._mix_precision() == jax.lax.Precision.HIGHEST
+def test_complex_mix_keeps_float32_mantissa(rng):
+    """The channel mixes run at HIGHEST precision: the result matches a
+    float64 contraction to float32 accuracy (a TF32 or bf16 pass would
+    be off by ~1e-3 relative)."""
+    mix = rng.standard_normal((5, 7)).astype(np.float32)
+    x = rng.standard_normal((7, 2, 256)).astype(np.float32)
+    got = np.asarray(pc.complex_mix(jnp.asarray(mix), jnp.asarray(x)))
+    ref = np.einsum("af,fpn->apn", mix.astype(np.float64), x)
+    bound = 8 * 2.0 ** -24 * np.einsum("af,fpn->apn", np.abs(mix), np.abs(x))
+    assert np.all(np.abs(got - ref) <= bound)
 
 
 def test_native_quantize_nan_consistent():

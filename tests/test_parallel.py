@@ -123,12 +123,10 @@ output {chans} {{ device: "file" {{ path: "{outp}"; }}; sample: "FLOAT_LE"; chan
         np.testing.assert_allclose(y[c], ref, rtol=0, atol=2e-3)
 
 
-def test_sharded_pallas_mac_parity(rng):
-    """The shard_map-wrapped pallas kernel matches the dense path on a mesh.
-
-    N/sp must stay lane-aligned and >=256 bins per shard, so N=1024 on the
-    2x4 mesh. interpret mode: the kernel itself runs on CPU test devices.
-    """
+def test_sharded_triton_graph_matches_single(rng, triton_interpret):
+    """A graph built for the Triton MAC runs the dense MAC under a mesh
+    (the Pallas kernel does not partition itself), and the sharded output
+    matches the single-device Triton step (interpreted)."""
     N, B, C = 1024, 4, 8
     taps = rng.standard_normal(N * B).astype(np.float32) * 0.1
     spec = build_graph_spec(N, B, C, C, [[] for _ in range(C)], [False] * C)
@@ -139,17 +137,17 @@ def test_sharded_pallas_mac_parity(rng):
         np.zeros(C, np.int32), np.ones((C, B), np.float32))
     xs = rng.standard_normal((5, C, N)).astype(np.float32)
 
-    cg_ref = CompiledGraph(spec, mac="jnp")
-    state = cg_ref.init_state()
+    cg = CompiledGraph(spec, mac="triton")
+    assert cg.mac == "triton"
+    state = cg.init_state()
     single = []
     for xb in xs:
-        state, y = cg_ref.step(state, ctrl, jnp.asarray(bank), jnp.asarray(xb))
+        state, y = cg.step(state, ctrl, jnp.asarray(bank), jnp.asarray(xb))
         single.append(np.asarray(y))
 
     mesh = make_mesh(jax.devices()[:8], f_axis=2)
-    cg = CompiledGraph(spec, mac="pallas-interpret")
     sg = ShardedGraph(cg, mesh)
-    assert sg.mac == "pallas-interpret"  # shape divides; no silent degrade
+    assert sg.mac == "jnp"
     sstate = sg.init_state()
     sctrl, sbank, _ = sg.place(ctrl, jnp.asarray(bank), jnp.asarray(xs[0]))
     for xb, ref in zip(xs, single):
@@ -157,14 +155,32 @@ def test_sharded_pallas_mac_parity(rng):
         np.testing.assert_allclose(np.asarray(y), ref, rtol=0, atol=1e-4)
 
 
-def test_sharded_pallas_degrades_on_indivisible():
-    """A shape that does not divide over the mesh falls back to the dense MAC."""
-    N, B, C = 256, 2, 6  # C=6 not divisible by f_axis=4; N/sp too small
+@pytest.mark.parametrize("f_axis", [1, 2, 4, 8])
+def test_sharded_mesh_shapes_match_single(rng, f_axis):
+    """Every ('f', 'sp') split of the 8 devices gives the single-device
+    result: pure bin parallelism (f=1) through pure filter parallelism
+    (f=8)."""
+    N, B, C = 256, 2, 8
+    taps = rng.standard_normal(N * B).astype(np.float32) * 0.1
     spec = build_graph_spec(N, B, C, C, [[] for _ in range(C)], [False] * C)
-    cg = CompiledGraph(spec, mac="pallas-interpret")
-    mesh = make_mesh(jax.devices()[:8], f_axis=4)
-    sg = ShardedGraph(cg, mesh)
-    assert sg.mac == "jnp"
+    bank = jnp.asarray(make_bank([partconv.preprocess_coeffs(taps, N, B)]))
+    ctrl = make_ctrl(
+        spec, rng.standard_normal((C, C)).astype(np.float32),
+        np.zeros((C, C), np.float32),
+        rng.standard_normal((C, C)).astype(np.float32),
+        np.zeros(C, np.int32), np.zeros(C, np.int32),
+        np.ones((C, B), np.float32))
+    xs = rng.standard_normal((3, C, N)).astype(np.float32)
+    cg = CompiledGraph(spec, mac="jnp")
+    st = cg.init_state()
+    sg = ShardedGraph(cg, make_mesh(jax.devices()[:8], f_axis=f_axis))
+    sst = sg.init_state()
+    sctrl, sbank, _ = sg.place(ctrl, bank, jnp.asarray(xs[0]))
+    for xb in xs:
+        st, y = cg.step(st, ctrl, bank, jnp.asarray(xb))
+        sst, ys = sg.step(sst, sctrl, sbank, jnp.asarray(xb))
+        np.testing.assert_allclose(np.asarray(ys), np.asarray(y), rtol=0,
+                                   atol=1e-4)
 
 
 def test_sharded_kitchensink_semantics(rng):
@@ -313,10 +329,9 @@ output {chans} {{ device: "file" {{ path: "{outp}"; }}; sample: "S24_4LE"; chann
     assert np.abs(y.astype(np.int64) - x.astype(np.int64)).max() <= 1
 
 
-def test_sharded_pallas_crossfade_parity(rng):
-    """A live coefficient swap with crossfade runs the dual MAC through
-    the shard_map pallas kernel; outputs must match the dense
-    single-device path."""
+def test_sharded_crossfade_parity(rng):
+    """A live coefficient swap with crossfade on the mesh (both MAC
+    passes sharded by the partitioner) matches the single-device path."""
     N, B, C = 1024, 4, 8
     taps_a = rng.standard_normal(N * B).astype(np.float32) * 0.1
     taps_b = rng.standard_normal(N * B).astype(np.float32) * 0.1
@@ -344,8 +359,7 @@ def test_sharded_pallas_crossfade_parity(rng):
         single.append(np.asarray(y))
 
     mesh = make_mesh(jax.devices()[:8], f_axis=2)
-    cg = CompiledGraph(spec, mac="pallas-interpret")
-    sg = ShardedGraph(cg, mesh)
+    sg = ShardedGraph(cg_ref, mesh)
     sstate = sg.init_state()
     for xb, ct, ref in zip(xs, plans, single):
         sctrl, sbank, sx = sg.place(ct, jnp.asarray(bank), jnp.asarray(xb))
@@ -363,7 +377,7 @@ def test_sharded_pallas_crossfade_parity(rng):
         np.testing.assert_allclose(np.asarray(y), ref, rtol=0, atol=1e-4)
 
     # and the single-device host-selected programs (CompiledGraph.step
-    # xfade flag; jnp MAC exercises the non-dual _mac_pair branch)
+    # xfade flag)
     st2 = cg_ref.init_state()
     for xb, ct, ref in zip(xs, plans, single):
         xf = bool(np.any(np.asarray(ct.xfade) > 0))
@@ -372,24 +386,21 @@ def test_sharded_pallas_crossfade_parity(rng):
         np.testing.assert_allclose(np.asarray(y), ref, rtol=0, atol=1e-4)
 
 
-def test_sharded_fused_mix_matches_dense(rng, monkeypatch):
-    """The fused MAC+mix kernel under shard_map (psum over 'f') matches
-    the dense single-device step. N/sp stays lane-aligned and >=256 bins
-    per shard, so N=1024 on the 2x4 mesh (interpret-mode kernel)."""
-    import os
+def test_sharded_mixes_match_dense(rng):
+    """Dense in/out mixing matrices under the 2x4 mesh (the output mix
+    contracts the 'f'-sharded filter axis: a psum) match the
+    single-device step."""
     N, B, C = 1024, 2, 4
     taps = (rng.standard_normal(N * B) * 0.1).astype(np.float32)
     spec = build_graph_spec(N, B, C, C, [[] for _ in range(C)], [False] * C)
     bank = make_bank([partconv.preprocess_coeffs(taps, N, B)])
     in_mix = rng.standard_normal((C, C)).astype(np.float32)
     out_mix = rng.standard_normal((C, C)).astype(np.float32)
-    from brutefir_tpu.graph import make_ctrl
     ctrl = make_ctrl(spec, in_mix, np.zeros((C, C), np.float32), out_mix,
                      np.zeros(C, np.int32), np.zeros(C, np.int32),
                      np.ones((C, B), np.float32))
     xs = rng.standard_normal((4, C, N)).astype(np.float32)
 
-    monkeypatch.setenv("BRUTEFIR_TPU_FUSED_MIX", "0")
     cg = CompiledGraph(spec, mac="jnp")
     st = cg.init_state()
     dense = []
@@ -397,11 +408,8 @@ def test_sharded_fused_mix_matches_dense(rng, monkeypatch):
         st, y = cg.step(st, ctrl, jnp.asarray(bank), jnp.asarray(xb))
         dense.append(np.asarray(y))
 
-    monkeypatch.setenv("BRUTEFIR_TPU_FUSED_MIX", "1")
     mesh = make_mesh(jax.devices()[:8], f_axis=2)
-    cgp = CompiledGraph(spec, mac="pallas-interpret")
-    sg = ShardedGraph(cgp, mesh)
-    assert sg.mac.startswith("pallas")
+    sg = ShardedGraph(cg, mesh)
     sst = sg.init_state()
     sctrl, sbank, _ = sg.place(ctrl, jnp.asarray(bank), jnp.asarray(xs[0]))
     got = []

@@ -2,7 +2,7 @@
 
 The hoisted variant (BRUTEFIR_TPU_PREFFT=1) batches decode/delay/framing/
 forward-rfft of the whole batch before the scan; it is kept as an opt-in
-experiment (measured slower on TPU v5e, see device_io.multi_step) and must
+experiment (see device_io.multi_step) and must
 stay semantically identical to the default scanned path.
 """
 

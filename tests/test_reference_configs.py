@@ -1,13 +1,15 @@
 """End-to-end runs of the reference's shipped configs.
 
-bench1..bench5 and xtc_config are taken from the reference tree verbatim,
-with their device blocks redirected from /dev/zero -> random input files and
+bench1..bench5 and xtc_config (tests/data/, the shapes SURVEY.md section 4
+documents for the reference tree) are run with their device blocks
+redirected from /dev/zero -> random input files and
 /dev/null (or alsa) -> output files, then checked against numpy oracles.
 This is the reference's own validation strategy (SURVEY 4): the benchmark
 configs double as integration tests and file-to-file runs are the
 regression oracle.
 """
 
+import os
 import re
 
 import numpy as np
@@ -19,7 +21,7 @@ from brutefir_tpu.core.sampleformat import parse_sample_format
 from brutefir_tpu.core.codecs import Overflow, quantize_no_dither
 from brutefir_tpu.runtime import Engine
 
-REF = "/root/reference"
+REF = os.path.join(os.path.dirname(__file__), "data")
 
 
 def load_ref_config(name):
@@ -195,7 +197,18 @@ def test_bench4_kitchen_sink_oracle(tmp_path, rng, s24):
     assert np.abs(y0 - y0_f).max() < 5.0
 
 
-def test_xtc_config_real_coefficients(tmp_path, rng):
+@pytest.fixture
+def xtc_coeffs():
+    """The reference's measured crosstalk filters; the repository does
+    not carry them, so the test skips where they are absent."""
+    paths = [os.path.join(REF, f"{n}.txt") for n in ("directpath",
+                                                     "crosspath")]
+    if not all(os.path.exists(p) for p in paths):
+        pytest.skip("directpath.txt / crosspath.txt (the reference's "
+                    "measured XTC filters) are not in tests/data")
+
+
+def test_xtc_config_real_coefficients(tmp_path, rng, xtc_coeffs):
     """The reference's real 2x2 crosstalk canceller: directpath.txt /
     crosspath.txt TEXT coefficients at 64x64 partitioning vs scipy."""
     N, B = 64, 64

@@ -7,7 +7,7 @@ instead of a per-filter scatter (selected via Control.snapshot_uniform_
 delay -> DeviceIO.multi_step(udelay=...)). The two program variants must
 be bit-identical: they write the same values to the same ring slots.
 Reference ring-slot semantics: curblock = (blockcounter + delay) %
-n_blocks, /root/reference/bfrun.c:1600.
+n_blocks, bfrun.c:1600.
 """
 
 import numpy as np

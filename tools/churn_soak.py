@@ -4,15 +4,15 @@
 Drives the per-block device step for CHURN_BLOCKS blocks (default 2000,
 ~125 ring wraps at B=16) while a seeded RNG mutates the control state
 every block the way a live CLI/EQ session would: coefficient swaps on a
-crossfade-enabled filter (exercising the lax.cond branch and the
-dual-MAC kernel), mutes, output delay changes, filter pre-delay
+crossfade-enabled filter (exercising the host-selected crossfade
+program), mutes, output delay changes, filter pre-delay
 changes. Asserts every fetched meter is finite, then runs the whole
 thing TWICE with the same seed and asserts the accumulated output
 checksum is bit-identical -- the engine must be deterministic under
 control churn (the reference's block-deterministic CLI script contract,
 bflogic_cli.c script mode).
 
-Run on the TPU host: python tools/churn_soak.py [blocks]
+Run on the GPU: python tools/churn_soak.py [blocks]
 """
 
 import os
